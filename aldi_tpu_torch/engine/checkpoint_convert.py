@@ -8,6 +8,11 @@ state dict for ``models.rcnn.RCNN``, whose names follow detectron2:
   (the box head's ``fc1`` keeps the (h, w, c) input order of the JAX
   package, so it needs no permutation);
 - FrozenBN arrays of the ``frozen`` collection -> buffers.
+
+The same function converts a JAX ``TrainState``'s EMA teacher, given
+``{"params": state.ema_params, "frozen": state.frozen}`` (the teacher
+shares the student's FrozenBN statistics); ``engine.train_step.
+create_train_state(cfg, det, weights, teacher_weights)`` takes both.
 """
 
 from typing import Dict

@@ -10,9 +10,9 @@ def build_detector(cfg, device=None):
     if name != "GeneralizedRCNN":
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE={name} is not ported yet: ROADMAP.md "
-            "lists it under 'Modules still to port'")
+            "lists it under 'Slices still to port'")
     if cfg.MODEL.LOAD_PROPOSALS:
         raise NotImplementedError(
             "MODEL.LOAD_PROPOSALS is not ported yet: ROADMAP.md lists it "
-            "under 'Modules still to port'")
+            "under 'Slices still to port'")
     return RCNNDetector(cfg, device)

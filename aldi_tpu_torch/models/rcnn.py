@@ -1,12 +1,18 @@
-"""GeneralizedRCNN: parameter module + inference orchestrator.
+"""GeneralizedRCNN: parameter module + train/inference orchestrator.
 
-Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN backbone and the
-serving path (``RCNNDetector.forward_inference``, ``:694-726``). ``RCNN``
-holds the weights under detectron2's module names; ``RCNNDetector`` owns the
+Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN backbone: the
+serving path (``RCNNDetector.forward_inference``, ``:694-726``) and the DAOD
+training interface (``forward_train``, ``forward_teacher``,
+``forward_teacher_ctx``, ``distill_losses``, ``:379-659``). ``RCNN`` holds
+the weights under detectron2's module names; ``RCNNDetector`` owns the
 config state (anchors for the fixed canvas, thresholds, top-k sizes) and
-drives the stages. Public stage functions keep the JAX package's layouts:
+drives the stages. The JAX methods take a variables tree first; the
+training methods here take the ``RCNN`` module to run (the student or the
+EMA teacher). Public stage functions keep the JAX package's layouts:
 images [B, H, W, 3] in 0..255, FPN levels NHWC (views of NCHW tensors in
 ``channels_last`` memory format), pooled features [B, P, 7, 7, C].
+Domain alignment (``_align_losses``, ``forward_domain_align``) is not
+ported yet.
 """
 
 import math
@@ -21,10 +27,12 @@ from ..ops.anchors import AnchorGenerator
 from .fpn import FPN
 from .resnet import ResNet
 from .roi_heads import (FastRCNNConvFCHead, FastRCNNOutputLayers, box_pooler,
-                        fast_rcnn_inference)
-from .rpn import StandardRPNHead, generate_proposals
+                        fast_rcnn_inference, fast_rcnn_losses,
+                        sample_proposals)
+from .rpn import (StandardRPNHead, generate_proposals, label_anchors_sampled,
+                  rpn_losses)
 
-_NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Modules still "
+_NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Slices still "
                "to port'")
 
 
@@ -36,10 +44,11 @@ class RCNN(nn.Module):
     def __init__(self, num_classes, num_cell_anchors, depth=50,
                  stride_in_1x1=True, fpn_out_channels=256, rpn_conv_dims=(-1,),
                  num_fc=2, fc_dim=1024, num_conv=0, box_head_norm="",
-                 pooler_resolution=7, compute_dtype=torch.float32):
+                 pooler_resolution=7, compute_dtype=torch.float32,
+                 freeze_at=0):
         super().__init__()
         dt = compute_dtype
-        self.backbone = FPN(ResNet(depth, stride_in_1x1, dt),
+        self.backbone = FPN(ResNet(depth, stride_in_1x1, dt, freeze_at),
                             out_channels=fpn_out_channels, compute_dtype=dt)
         self.proposal_generator = nn.ModuleDict({"rpn_head": StandardRPNHead(
             fpn_out_channels, num_cell_anchors, rpn_conv_dims, dt)})
@@ -68,6 +77,19 @@ def _check_supported(cfg):
             "the FPN R-CNN family")
 
 
+def check_trainable(cfg):
+    """Raise on training options the port does not carry yet."""
+    if cfg.TPU.RPN_LOSS_IMPL != "sampled":
+        raise NotImplementedError(
+            f"TPU.RPN_LOSS_IMPL={cfg.TPU.RPN_LOSS_IMPL!r} {_NOT_PORTED}")
+    a = cfg.DOMAIN_ADAPT.ALIGN
+    if a.IMG_DA_ENABLED or a.INS_DA_ENABLED:
+        raise NotImplementedError(
+            "DOMAIN_ADAPT.ALIGN (grad_reverse, the discriminators, "
+            "forward_domain_align) is not ported yet: ROADMAP.md lists it "
+            "under slice 3, domain alignment")
+
+
 class RCNNDetector:
     """Static config + orchestration around the ``RCNN`` module, which
     lives on ``device`` (``cuda`` unless the caller asks for another)."""
@@ -88,6 +110,7 @@ class RCNNDetector:
                     for s in self.rpn_strides]
         self.anchors = [torch.as_tensor(a, device=self.device)
                         for a in anchor_gen(feat_hws)]
+        self.anchors_cat = torch.cat(self.anchors, 0)
         self.pixel_mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32,
                                        device=self.device)
         self.pixel_std = torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32,
@@ -105,10 +128,26 @@ class RCNNDetector:
             box_head_norm=box.NORM,
             pooler_resolution=box.POOLER_RESOLUTION,
             compute_dtype=self.dtype,
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         ).eval()
         self.init_variables(seed=0)
 
-        self.rpn_box_reg_weights = tuple(cfg.MODEL.RPN.BBOX_REG_WEIGHTS)
+        rpn = cfg.MODEL.RPN
+        self.rpn_box_reg_weights = tuple(rpn.BBOX_REG_WEIGHTS)
+        self.rpn_params = dict(
+            batch_size_per_image=rpn.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=rpn.POSITIVE_FRACTION,
+            box_reg_weights=self.rpn_box_reg_weights,
+            smooth_l1_beta=rpn.SMOOTH_L1_BETA,
+        )
+        roi = cfg.MODEL.ROI_HEADS
+        self.roi_sample_params = dict(
+            num_classes=self.num_classes,
+            batch_size_per_image=roi.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=roi.POSITIVE_FRACTION,
+            iou_threshold=roi.IOU_THRESHOLDS[0],
+            append_gt=roi.PROPOSAL_APPEND_GT,
+        )
         self.box_reg_weights = tuple(box.BBOX_REG_WEIGHTS)
         self.pooler_resolution = box.POOLER_RESOLUTION
 
@@ -134,36 +173,167 @@ class RCNNDetector:
         return x.to(self.dtype)
 
     # -------------------------------------------------------------- stages
-    def backbone(self, images):
+    # ``module``: the RCNN to run, the detector's own by default
+    def backbone(self, images, module=None):
         """Normalized NHWC images -> [p2, ..., p6], each NHWC."""
-        feats = self.module.backbone(images.permute(0, 3, 1, 2))
+        feats = (module or self.module).backbone(images.permute(0, 3, 1, 2))
         return [f.permute(0, 2, 3, 1) for f in feats]
 
-    def rpn_head(self, features):
-        return self.module.proposal_generator["rpn_head"](
+    def rpn_head(self, features, module=None):
+        return (module or self.module).proposal_generator["rpn_head"](
             [f.permute(0, 3, 1, 2) for f in features])
 
-    def proposals(self, logits, deltas, image_sizes):
+    def proposals(self, logits, deltas, image_sizes, train=False):
+        """RPN proposals at the train or the test top-k sizes."""
         c = self.cfg.MODEL.RPN
         return generate_proposals(
             logits, deltas, self.anchors, image_sizes,
-            pre_nms_topk=c.PRE_NMS_TOPK_TEST,
-            post_nms_topk=c.POST_NMS_TOPK_TEST,
+            pre_nms_topk=c.PRE_NMS_TOPK_TRAIN if train else c.PRE_NMS_TOPK_TEST,
+            post_nms_topk=(c.POST_NMS_TOPK_TRAIN if train
+                           else c.POST_NMS_TOPK_TEST),
             nms_thresh=c.NMS_THRESH,
             min_size=self.cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
             box_reg_weights=self.rpn_box_reg_weights,
         )
 
-    def box_head(self, features, boxes, valid):
+    def box_head(self, features, boxes, valid, module=None):
         """NHWC levels + boxes [B, S, 4] -> (cls_logits [B, S, K+1],
         deltas [B, S, K*4], box_features [B, S, fc_dim])."""
         pooled = box_pooler([f.contiguous() for f in features[:-1]], boxes,
                             valid, self.roi_strides, self.pooler_resolution)
         b, s = pooled.shape[:2]
-        heads = self.module.roi_heads
+        heads = (module or self.module).roi_heads
         x = heads["box_head"](pooled.reshape((b * s,) + pooled.shape[2:]))
         cls, reg = heads["box_predictor"](x)
         return cls.reshape(b, s, -1), reg.reshape(b, s, -1), x.reshape(b, s, -1)
+
+    def _rpn_outputs(self, feats, module):
+        """RPN head outputs per level and concatenated over levels in
+        anchor order, float32: (logits, deltas, logits_cat, deltas_cat)."""
+        logits, deltas = self.rpn_head(feats, module)
+        return (logits, deltas,
+                torch.cat([lg.to(torch.float32) for lg in logits], 1),
+                torch.cat([d.to(torch.float32) for d in deltas], 1))
+
+    # ---------------------------------------------------------- train pass
+    def forward_train(self, module, images, image_sizes, gt, draws):
+        """Full training forward of ``module`` on images [B, H, W, 3] with
+        ground truth ``gt`` (``Instances`` padded to MAX_GT). ``draws``:
+        ``{"rpn": ..., "roi": ...}`` from ``engine.train_step.draw_step``.
+        Returns (losses, aux); aux carries the RPN head outputs
+        (concatenated over levels, float32), the sampled ROI set and the box
+        predictor's outputs on it, for the distill losses."""
+        check_trainable(self.cfg)
+        feats = self.backbone(self.preprocess(images), module)
+        logits, deltas, logits_cat, deltas_cat = self._rpn_outputs(
+            feats, module)
+        losses = rpn_losses(self.anchors_cat, logits_cat, deltas_cat,
+                            gt.boxes, gt.valid, draws["rpn"],
+                            **self.rpn_params)
+        # proposals are constants of the ROI stage (the JAX package's
+        # stop_gradient): no gradient through decode, NMS and top-k
+        with torch.no_grad():
+            pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes,
+                                               train=True)
+        sampled = sample_proposals(pboxes, pvalid, gt.boxes, gt.classes,
+                                   gt.valid, draws["roi"],
+                                   **self.roi_sample_params)
+        cls_logits, box_deltas, _ = self.box_head(
+            feats, sampled["boxes"], sampled["valid"], module)
+        losses.update(fast_rcnn_losses(
+            cls_logits, box_deltas, sampled, self.num_classes,
+            self.box_reg_weights, self.cfg.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA))
+        aux = {
+            "rpn_logits": logits_cat,
+            "rpn_deltas": deltas_cat,
+            "sampled": sampled,
+            "roih_cls_logits": cls_logits.to(torch.float32),
+            "roih_deltas": box_deltas.to(torch.float32),
+        }
+        return losses, aux
+
+    # -------------------------------------------------------- teacher pass
+    @torch.no_grad()
+    def forward_teacher(self, module, images, image_sizes):
+        """One teacher pass (no gradient, but tensors an autograd graph may
+        later save, unlike ``inference_mode``): backbone + RPN head once,
+        detections on the test top-k path. Returns (features, rpn_logits_cat,
+        rpn_deltas_cat, detections)."""
+        feats = self.backbone(self.preprocess(images), module)
+        logits, deltas, logits_cat, deltas_cat = self._rpn_outputs(
+            feats, module)
+        pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes)
+        cls_logits, box_deltas, _ = self.box_head(feats, pboxes, pvalid,
+                                                  module)
+        r = self.cfg.MODEL.ROI_HEADS
+        dets = fast_rcnn_inference(
+            pboxes, pvalid, cls_logits, box_deltas, image_sizes,
+            self.num_classes, score_thresh=r.SCORE_THRESH_TEST,
+            nms_thresh=r.NMS_THRESH_TEST,
+            topk_per_image=self.cfg.TEST.DETECTIONS_PER_IMAGE,
+            box_reg_weights=self.box_reg_weights)
+        return feats, logits_cat, deltas_cat, dets
+
+    @torch.no_grad()
+    def forward_teacher_ctx(self, module, images, image_sizes, draws,
+                            threshold: float, max_gt: int):
+        """Teacher side of one distill iteration: pseudo-labels and what
+        ``distill_losses`` needs. ``draws`` are those of the anchor sampler
+        against the pseudo-labels. Returns (ctx, pseudo_gt, metrics)."""
+        from ..engine.pseudolabel import detections_to_pseudo_labels
+
+        feats, rpn_logits, rpn_deltas, dets = self.forward_teacher(
+            module, images, image_sizes)
+        pseudo = detections_to_pseudo_labels(*dets, threshold=threshold,
+                                             max_gt=max_gt)
+        d = self.cfg.DOMAIN_ADAPT.DISTILL
+        ctx = {"feats": feats}
+        if d.OBJ_ENABLED or d.RPN_REG_ENABLED:
+            # the distill anchor set, sampled against the pseudo-labels, and
+            # the teacher's head outputs gathered at it
+            idx, valid, fg, _ = label_anchors_sampled(
+                self.anchors_cat, pseudo.boxes, pseudo.valid, draws,
+                batch_size_per_image=self.rpn_params["batch_size_per_image"],
+                positive_fraction=self.rpn_params["positive_fraction"])
+            ctx.update(
+                anchor_idx=idx, anchor_valid=valid, anchor_fg=fg,
+                t_obj=torch.gather(rpn_logits, 1, idx),
+                t_delta=torch.gather(rpn_deltas, 1,
+                                     idx[..., None].expand(-1, -1, 4)))
+        metrics = {"num_pseudo_labels": pseudo.valid.sum().to(torch.float32)
+                   / max(images.shape[0], 1)}
+        return ctx, pseudo, metrics
+
+    def distill_losses(self, teacher, ctx, s_aux):
+        """Soft distillation losses between the teacher context and the
+        student's aux from its pass on the pseudo-labels; the teacher's box
+        head runs (without gradient) on the student's sampled ROI set."""
+        from ..engine.distill import roih_distill_losses, rpn_distill_losses
+
+        d = self.cfg.DOMAIN_ADAPT.DISTILL
+        out = {}
+        sampled = {k: v.detach() for k, v in s_aux["sampled"].items()}
+        with torch.no_grad():
+            t_cls, t_deltas, _ = self.box_head(
+                ctx["feats"], sampled["boxes"], sampled["valid"], teacher)
+        t_cls, t_deltas = t_cls.to(torch.float32), t_deltas.to(torch.float32)
+        if d.OBJ_ENABLED or d.RPN_REG_ENABLED:
+            idx = ctx["anchor_idx"]
+            out.update(rpn_distill_losses(
+                torch.gather(s_aux["rpn_logits"], 1, idx),
+                torch.gather(s_aux["rpn_deltas"], 1,
+                             idx[..., None].expand(-1, -1, 4)),
+                ctx["t_obj"], ctx["t_delta"], ctx["anchor_valid"],
+                ctx["anchor_fg"], obj_temperature=d.OBJ_TMP,
+                do_obj=d.OBJ_ENABLED, do_reg=d.RPN_REG_ENABLED))
+        if d.ROIH_CLS_ENABLED or d.ROIH_REG_ENABLED:
+            out.update(roih_distill_losses(
+                s_aux["roih_cls_logits"], s_aux["roih_deltas"], t_cls,
+                t_deltas, sampled["valid"], self.num_classes,
+                cls_temperature=d.CLS_TMP,
+                cls_loss_type=self.cfg.DOMAIN_ADAPT.CLS_LOSS_TYPE,
+                do_cls=d.ROIH_CLS_ENABLED, do_reg=d.ROIH_REG_ENABLED))
+        return out
 
     # ----------------------------------------------------------- inference
     @torch.inference_mode()

@@ -93,13 +93,21 @@ class BasicStem(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns the stage outputs ``{"res2": ..., ..., "res5": ...}``."""
+    """Returns the stage outputs ``{"res2": ..., ..., "res5": ...}``.
+
+    ``freeze_at`` (``MODEL.BACKBONE.FREEZE_AT``) freezes the stem (>= 1) and
+    the stages res2..res{freeze_at}: their outputs are detached at the
+    points where ``aldi_tpu/models/resnet.py:159-160,185-186`` stops the
+    gradient, and their parameters have ``requires_grad=False``, so they
+    stay out of the optimizer (``aldi_tpu/solver.py:120-138`` masks them).
+    """
 
     out_channels = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
     def __init__(self, depth=50, stride_in_1x1=True,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, freeze_at=0):
         super().__init__()
+        self.freeze_at = freeze_at
         self.stem = BasicStem(compute_dtype)
         in_ch, bott_ch, out_ch = 64, 64, 256
         self.stage_names = []
@@ -115,11 +123,19 @@ class ResNet(nn.Module):
             self.add_module(name, nn.Sequential(*blocks))
             self.stage_names.append(name)
             in_ch, bott_ch, out_ch = out_ch, bott_ch * 2, out_ch * 2
+        frozen = (["stem"] * (freeze_at >= 1)
+                  + self.stage_names[:max(freeze_at - 1, 0)])
+        for name in frozen:
+            getattr(self, name).requires_grad_(False)
 
     def forward(self, x):
         out = self.stem(x)
+        if self.freeze_at >= 1:
+            out = out.detach()
         feats = {}
-        for name in self.stage_names:
+        for i, name in enumerate(self.stage_names):
             out = getattr(self, name)(out)
+            if self.freeze_at >= i + 2:
+                out = out.detach()
             feats[name] = out
         return feats

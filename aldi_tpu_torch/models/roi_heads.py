@@ -1,8 +1,10 @@
-"""Second stage at inference: box pooler, box head, Fast R-CNN inference.
+"""Second stage: proposal sampling, box pooler, box head, Fast R-CNN
+losses and inference.
 
-Port of the inference half of ``aldi_tpu/models/roi_heads.py``; proposal
-sampling and losses come with the training slice. Class logits are
-[N, K+1] with background last; deltas are [N, K*4].
+Port of ``aldi_tpu/models/roi_heads.py``. Class logits are [N, K+1] with
+background last; deltas are [N, K*4]. Sampling is batched over images and
+takes its draws as tensors (``ops/matcher.py``); the DAOD step hands the
+same sampled set to the student's and the teacher's box heads.
 """
 
 import torch
@@ -10,6 +12,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import boxes as box_ops
+from ..ops.losses import smooth_l1, softmax_cross_entropy
+from ..ops.matcher import match, sample_fixed_indices, subsample_labels
 from ..ops.nms import batched_nms_keep_mask
 from ..ops.roi_align import roi_align_batched
 from .layers import Linear
@@ -56,9 +60,89 @@ class FastRCNNOutputLayers(nn.Module):
         return self.cls_score(x), self.bbox_pred(x)
 
 
+def _take(x, idx):
+    """x [B, N, ...] gathered at idx [B, K] along dim 1."""
+    idx = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def sample_proposals(
+    proposals: torch.Tensor,  # [B, N, 4]
+    prop_valid: torch.Tensor,  # [B, N]
+    gt_boxes: torch.Tensor,  # [B, G, 4]
+    gt_classes: torch.Tensor,  # [B, G]
+    gt_valid: torch.Tensor,  # [B, G]
+    draws: dict,
+    num_classes: int,
+    batch_size_per_image: int = 512,
+    positive_fraction: float = 0.25,
+    iou_threshold: float = 0.5,
+    append_gt: bool = True,
+):
+    """Substrate ``label_and_sample_proposals``: match the candidates
+    (proposals [+ gt]) to gt, assign classes (background = num_classes),
+    sample a fixed-size balanced set. ``draws`` are those of
+    ``ops.matcher.sample_proposals_draws`` for the [B, N (+ G)] candidates.
+
+    Returns a dict of boxes [B, S, 4], classes [B, S], target_boxes
+    [B, S, 4], valid [B, S], is_pos [B, S]."""
+    if append_gt:
+        proposals = torch.cat([proposals, gt_boxes.to(proposals.dtype)], 1)
+        prop_valid = torch.cat([prop_valid, gt_valid], 1)
+    iou = box_ops.pairwise_iou(proposals, gt_boxes)
+    midx, mlab = match(iou, gt_valid, [iou_threshold], [0, 1], False)
+    bg = torch.full((), num_classes, dtype=torch.int32,
+                    device=proposals.device)
+    classes = torch.where(mlab == 1, torch.gather(
+        gt_classes.to(torch.int32), 1, midx.long()), bg)
+    # invalid candidates get the ignore label so they are never sampled
+    for_sampling = torch.where(prop_valid, classes, torch.full_like(
+        classes, -1))
+    pos, neg = subsample_labels(for_sampling, batch_size_per_image,
+                                positive_fraction, num_classes, draws)
+    idx, valid, is_pos = sample_fixed_indices(pos, neg, batch_size_per_image,
+                                              draws["fill"])
+    return {
+        "boxes": _take(proposals, idx),
+        "classes": torch.where(valid, _take(classes, idx), bg),
+        "target_boxes": _take(_take(gt_boxes, midx), idx),
+        "valid": valid,
+        "is_pos": is_pos,
+    }
+
+
 def box_pooler(features, boxes, valid, strides, resolution=7):
-    """Multi-level ROIAlign over NHWC levels -> [B, S, res, res, C]."""
+    """Multi-level ROIAlign over NHWC levels -> [B, S, res, res, C],
+    differentiable in the features."""
     return roi_align_batched(features, boxes, valid, strides, resolution)
+
+
+def fast_rcnn_losses(
+    cls_logits: torch.Tensor,  # [B, S, K+1]
+    deltas: torch.Tensor,  # [B, S, K*4]
+    sampled: dict,
+    num_classes: int,
+    box_reg_weights=(10.0, 10.0, 5.0, 5.0),
+    smooth_l1_beta: float = 0.0,
+) -> dict:
+    """Substrate ``FastRCNNOutputLayers.losses``: softmax CE averaged over
+    the sampled proposals; smooth-L1 on the gt-class deltas of foreground
+    proposals, normalized by the number of sampled proposals."""
+    valid = sampled["valid"]
+    classes = sampled["classes"]
+    n_valid = valid.sum().clamp(min=1)
+    ce = softmax_cross_entropy(cls_logits.to(torch.float32), classes)
+    loss_cls = (ce * valid).sum() / n_valid
+    fg = valid & (classes < num_classes)
+    target = box_ops.encode_deltas(sampled["boxes"], sampled["target_boxes"],
+                                   box_reg_weights)
+    d = deltas.reshape(deltas.shape[:-1] + (num_classes, 4)).to(torch.float32)
+    cls_idx = classes.clamp(0, num_classes - 1).long()
+    d_fg = torch.gather(d, -2, cls_idx[..., None, None].expand(
+        cls_idx.shape + (1, 4))).squeeze(-2)
+    reg = smooth_l1(d_fg, target, smooth_l1_beta).sum(-1)
+    loss_reg = (reg * fg).sum() / n_valid
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_reg}
 
 
 def fast_rcnn_inference(

@@ -1,8 +1,11 @@
-"""Region Proposal Network: head module + proposal generation.
+"""Region Proposal Network: head module, anchor labels and losses,
+proposal generation.
 
-Port of the inference half of ``aldi_tpu/models/rpn.py``; anchor labels and
-losses come with the training slice. Flattened (H, W, A) ordering matches
-``ops/anchors.py``, so logits/deltas/anchors align index for index.
+Port of ``aldi_tpu/models/rpn.py``. Flattened (H, W, A) ordering matches
+``ops/anchors.py``, so logits/deltas/anchors align index for index. Anchor
+labelling runs on the K sampled anchors per image (the JAX package's
+``TPU.RPN_LOSS_IMPL="sampled"``), batched over images: one matcher call
+(kernels K1a/K1b on the card) and one sampler call for the whole batch.
 """
 
 from typing import List
@@ -12,6 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import boxes as box_ops
+from ..ops.losses import bce_with_logits, smooth_l1
+from ..ops.match_kernel import match_boxes
+from ..ops.matcher import subsample_indices
 from ..ops.nms import nms_keep_mask, top_k_by_score
 from .layers import Conv2d
 
@@ -43,6 +49,60 @@ class StandardRPNHead(nn.Module):
             deltas.append(self.anchor_deltas(t).permute(0, 2, 3, 1)
                           .reshape(b, -1, 4))
         return logits, deltas
+
+
+def label_anchors_sampled(
+    anchors: torch.Tensor,  # [R, 4] all levels concatenated
+    gt_boxes: torch.Tensor,  # [B, G, 4]
+    gt_valid: torch.Tensor,  # [B, G]
+    draws: dict,
+    batch_size_per_image: int = 256,
+    positive_fraction: float = 0.5,
+    thresholds=(0.3, 0.7),
+):
+    """Substrate ``label_and_sample_anchors`` reduced to exactly
+    K = min(batch_size_per_image, R) sampled anchors per image
+    (``aldi_tpu/models/rpn.py:155-208``). ``draws`` are those of
+    ``subsample_indices`` for labels [B, R]. Returns (idx [B, K], valid
+    [B, K], is_pos [B, K], matched_gt [B, K, 4])."""
+    k = min(batch_size_per_image, anchors.shape[0])
+    midx, mlab = match_boxes(anchors, gt_boxes.to(torch.float32), gt_valid,
+                             list(thresholds), [0, -1, 1],
+                             allow_low_quality=True)
+    idx, valid, is_pos = subsample_indices(mlab.to(torch.int32), k,
+                                           positive_fraction, 0, draws)
+    gt_idx = torch.gather(midx, 1, idx).long()
+    matched = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4))
+    return idx, valid, is_pos, matched
+
+
+def rpn_losses(
+    anchors: torch.Tensor,  # [R, 4]
+    logits: torch.Tensor,  # [B, R]
+    deltas: torch.Tensor,  # [B, R, 4]
+    gt_boxes: torch.Tensor,
+    gt_valid: torch.Tensor,
+    draws: dict,
+    batch_size_per_image: int = 256,
+    positive_fraction: float = 0.5,
+    box_reg_weights=(1.0, 1.0, 1.0, 1.0),
+    smooth_l1_beta: float = 0.0,
+) -> dict:
+    """Substrate RPN losses on the K sampled anchors: objectness BCE over the
+    sampled set and smooth-L1 delta regression over its positives, each
+    normalized by B * batch_size_per_image."""
+    idx, valid, is_pos, matched_gt = label_anchors_sampled(
+        anchors, gt_boxes, gt_valid, draws, batch_size_per_image,
+        positive_fraction)
+    normalizer = logits.shape[0] * batch_size_per_image
+    lg = torch.gather(logits, 1, idx).to(torch.float32)
+    obj = bce_with_logits(lg, is_pos.to(torch.float32))
+    loss_cls = (obj * valid).sum() / normalizer
+    dl = torch.gather(deltas, 1, idx[..., None].expand(-1, -1, 4))
+    target = box_ops.encode_deltas(anchors[idx], matched_gt, box_reg_weights)
+    reg = smooth_l1(dl.to(torch.float32), target, smooth_l1_beta).sum(-1)
+    loss_loc = (reg * is_pos).sum() / normalizer
+    return {"loss_rpn_cls": loss_cls, "loss_rpn_loc": loss_loc}
 
 
 def generate_proposals(

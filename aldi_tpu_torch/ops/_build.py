@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so`` at
 the repository root (``build/`` is git-ignored), then loaded with ``ctypes``.
-The hash of the source names the library, so an edited source is rebuilt
+The hash of the source and of the shared headers names the
+library, so an edited source is rebuilt
 and an unchanged one is built once per checkout. Nothing is built when a
 module is imported: the first launch builds, or ``build`` does it for
 several sources at once, with one ``nvcc`` process each, all started
@@ -37,8 +38,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of the source
+    and of the shared headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict:
@@ -69,8 +74,41 @@ def build(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Every source exports ``aldi_cuda_error_string(int)``."""
     if name not in _loaded:
         build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.aldi_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.aldi_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return _loaded[name]
+
+
+class Kernel:
+    """Base of the kernels' wrappers. A subclass names its ``library``
+    (``csrc/<library>.cu``) and the argument types of its C entry point
+    ``aldi_<name>``; ``launch`` builds and loads the library on first use,
+    calls the entry point (which returns a CUDA error code), raises on an
+    error and counts the launch in ``launches``. Nothing else counts."""
+
+    name: str
+    library: str
+    argtypes: list
+
+    def __init__(self):
+        self.launches = 0
+
+    def lib(self) -> ctypes.CDLL:
+        return load(self.library)
+
+    def launch(self, *args) -> None:
+        lib = self.lib()
+        fn = getattr(lib, f"aldi_{self.name}")
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: CUDA error {rc} "
+                f"({lib.aldi_cuda_error_string(rc).decode()})")
+        self.launches += 1

@@ -10,15 +10,24 @@ Port of ``aldi_tpu/ops/roi_align.py``. Two versions of one function:
 - the CUDA kernel behind ``roi_align_kernel.roi_align_fwd``, which replaces
   the Pallas forward ``aldi_tpu/ops/pallas_roi_align.py:183``.
 
-``roi_align_batched`` sends CPU tensors to the first and CUDA tensors to the
-second. Sampling ratio 2 and output 7x7 are what the box pooler uses.
+The backward with respect to the features has the same two versions:
+``roi_align_plain_backward`` (index-add into a float32 level table, as the
+JAX package's ``_fused_bwd``, ``aldi_tpu/ops/roi_align.py:342``) and the
+CUDA kernel behind ``roi_align_kernel.roi_align_bwd``. ``RoIAlignFunction``
+pairs each forward with its backward; the gradient with respect to the
+boxes is None (proposal boxes are constants of the ROI stage, as the JAX
+package's ``stop_gradient`` makes them).
+
+``roi_align_batched`` sends CPU tensors to the plain versions and CUDA
+tensors to the kernels. Sampling ratio 2 and output 7x7 are what the box
+pooler uses.
 """
 
 import math
 
 import torch
 
-from .roi_align_kernel import roi_align_fwd
+from .roi_align_kernel import roi_align_bwd, roi_align_fwd
 
 
 def assign_levels(boxes: torch.Tensor, min_level: int, max_level: int,
@@ -146,18 +155,81 @@ def roi_align_plain(features, boxes, levels, strides, output_size=7,
     return torch.stack(outs)
 
 
+def roi_align_plain_backward(grad, boxes, levels, feat_shapes, feat_dtype,
+                             strides, sampling_ratio=2):
+    """Plain PyTorch d(features) of ``roi_align_plain`` for the cotangent
+    grad [B, P, out, out, C]: per image, each sample that reads features
+    adds g / (sr*sr) times its four corner weights into a float32 table of
+    all levels (``index_add_``), which is then split per level and cast to
+    ``feat_dtype``, as ``_fused_bwd`` does. feat_shapes: per-level
+    (H_l, W_l). Returns per-level [B, H_l, W_l, C]."""
+    b, _, output_size, _, c = grad.shape
+    rows = sum(h * w for h, w in feat_shapes)
+    sr = sampling_ratio
+    tables = []
+    for i in range(b):
+        idx4, w4, _ = sample_geometry(boxes[i], levels[i], feat_shapes,
+                                      strides, output_size, sr)
+        g_s = (grad[i].to(torch.float32) / float(sr * sr))[
+            :, :, None, :, None, :].expand(idx4[0].shape + (c,))
+        table = torch.zeros((rows, c), dtype=torch.float32,
+                            device=grad.device)
+        for idx, w in zip(idx4, w4):
+            table.index_add_(0, idx.reshape(-1),
+                             (g_s * w[..., None]).reshape(-1, c))
+        tables.append(table)
+    table = torch.stack(tables)  # [B, rows, C]
+    out, start = [], 0
+    for h, w in feat_shapes:
+        out.append(table[:, start:start + h * w].reshape(b, h, w, c)
+                   .to(feat_dtype))
+        start += h * w
+    return out
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """Multi-level ROIAlign with its backward: ``roi_align_plain`` and
+    ``roi_align_plain_backward`` for CPU tensors, the forward and backward
+    kernels for CUDA tensors. The levels are computed once by the caller
+    and saved for the backward; the boxes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, boxes, levels, strides, output_size, sampling_ratio,
+                *features):
+        ctx.save_for_backward(boxes, levels)
+        ctx.meta = (tuple(strides), sampling_ratio,
+                    [(int(f.shape[1]), int(f.shape[2])) for f in features],
+                    features[0].dtype)
+        if boxes.device.type == "cpu":
+            return roi_align_plain(features, boxes, levels, strides,
+                                   output_size, sampling_ratio)
+        return roi_align_fwd(features, boxes, levels, strides, output_size,
+                             sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, levels = ctx.saved_tensors
+        strides, sr, feat_shapes, dtype = ctx.meta
+        grad = grad.contiguous()
+        if boxes.device.type == "cpu":
+            grads = roi_align_plain_backward(grad, boxes, levels,
+                                             feat_shapes, dtype, strides, sr)
+        else:
+            grads = roi_align_bwd(grad, boxes, levels, feat_shapes, dtype,
+                                  strides, sr)
+        return (None, None, None, None, None, *grads)
+
+
 def roi_align_batched(features, boxes, box_valid, strides, output_size=7,
                       sampling_ratio=2):
     """Batched multi-level ROIAlign: features per-level [B, H, W, C] (NHWC,
-    contiguous), boxes [B, P, 4], box_valid [B, P] -> [B, P, out, out, C].
+    contiguous), boxes [B, P, 4], box_valid [B, P] -> [B, P, out, out, C],
+    differentiable in the features.
 
-    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel or
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
     raise.
     """
-    boxes = boxes.to(torch.float32).contiguous()
+    boxes = boxes.detach().to(torch.float32).contiguous()
     levels = box_levels(boxes, box_valid, strides)
-    if boxes.device.type == "cpu":
-        return roi_align_plain(features, boxes, levels, strides, output_size,
-                               sampling_ratio)
-    return roi_align_fwd(features, boxes, levels, strides, output_size,
-                         sampling_ratio)
+    return RoIAlignFunction.apply(boxes, levels, list(strides), output_size,
+                                  sampling_ratio, *features)

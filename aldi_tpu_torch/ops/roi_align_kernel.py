@@ -1,12 +1,16 @@
-"""Wrapper of the CUDA ROIAlign forward kernel (``csrc/roi_align_fwd.cu``).
+"""Wrappers of the CUDA ROIAlign kernels: the forward
+(``csrc/roi_align_fwd.cu``) and the backward with respect to the features
+(``csrc/roi_align_bwd.cu``).
 
-The kernel replaces the Pallas forward ``aldi_tpu/ops/pallas_roi_align.py:183``
-(``_roi_align_pallas_flat``); the source says what bounds it on the card.
-Its plain PyTorch version is ``roi_align.roi_align_plain``, which takes the
-same arguments. The library is built and loaded on the first launch, never
-on import. The wrapper checks devices, dtypes, shapes and contiguity and
-raises on what the kernel does not take; it never falls back to the plain
-version.
+The forward replaces the Pallas forward ``aldi_tpu/ops/pallas_roi_align.py:183``
+(``_roi_align_pallas_flat``); the backward replaces the JAX package's XLA
+scatter-add backward ``aldi_tpu/ops/roi_align.py:342`` (``_fused_bwd``). The
+sources say what bounds them on the card. Their plain PyTorch versions are
+``roi_align.roi_align_plain`` and ``roi_align.roi_align_plain_backward``,
+which take the same arguments. The libraries are built and loaded on the
+first launch, never on import. The wrappers check devices, dtypes, shapes
+and contiguity and raise on what the kernels do not take; they never fall
+back to the plain versions.
 """
 
 import ctypes
@@ -19,31 +23,52 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class RoiAlignFwd:
-    """Callable kernel wrapper; ``launches`` counts kernel launches."""
+class _RoiAlignKernel(_build.Kernel):
+    """Shared argument checks and launch of the forward and the backward,
+    whose C entry points take the same arguments."""
 
-    name = "roi_align_fwd"
+    argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+
+    def _check(self, hws, dtype, boxes, levels, n_levels, strides):
+        b, p = boxes.shape[:2]
+        dev = boxes.device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
+        if dtype not in _DTYPE_CODES:
+            raise ValueError(f"{self.name} takes float32 or bfloat16, got "
+                             f"{dtype}")
+        if (boxes.dtype != torch.float32 or boxes.shape != (b, p, 4)
+                or not boxes.is_contiguous()):
+            raise ValueError("boxes must be a contiguous float32 [B, P, 4]")
+        if (levels.device != dev or levels.dtype != torch.int32
+                or levels.shape != (b, p) or not levels.is_contiguous()):
+            raise ValueError("levels must be a contiguous int32 [B, P] on the "
+                             "boxes' device")
+        if n_levels != len(strides) or len(hws) != n_levels:
+            raise ValueError("one stride per feature level")
+
+    def _launch(self, ptrs, hws, strides, boxes, levels, c, output_size,
+                sampling_ratio, dtype, data):
+        b, p = boxes.shape[:2]
+        ptrs = np.asarray(ptrs, np.uint64)
+        hw = np.asarray(hws, np.int32)
+        scale = np.asarray([1.0 / s for s in strides], np.float32)
+        dev = boxes.device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            self.launch(ptrs.ctypes.data, hw.ctypes.data, scale.ctypes.data,
+                        len(hws), boxes.data_ptr(), levels.data_ptr(), p,
+                        b * p, c, output_size, sampling_ratio,
+                        _DTYPE_CODES[dtype], data, stream)
+
+
+class RoiAlignFwd(_RoiAlignKernel):
+    """K2 forward: multi-level ROIAlign of NHWC levels."""
+
+    name = library = "roi_align_fwd"
     source = "aldi_tpu_torch/csrc/roi_align_fwd.cu"
     replaces = "aldi_tpu/ops/pallas_roi_align.py:183"
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-        self._err = None
-
-    def _load(self):
-        if self._fn is None:
-            lib = _build.load(self.name)
-            fn = lib.aldi_roi_align_fwd
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + \
-                [ctypes.c_void_p] * 2
-            fn.restype = ctypes.c_int
-            err = lib.aldi_cuda_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
-        return self._fn
 
     def __call__(self, features, boxes, levels, strides, output_size=7,
                  sampling_ratio=2):
@@ -53,49 +78,54 @@ class RoiAlignFwd:
         b, p = boxes.shape[:2]
         c = features[0].shape[-1]
         dtype = features[0].dtype
-        dev = boxes.device
-        if dev.type != "cuda":
-            raise ValueError(f"roi_align_fwd needs CUDA tensors, got {dev}")
-        if dtype not in _DTYPE_CODES:
-            raise ValueError(f"roi_align_fwd takes float32 or bfloat16, "
-                             f"got {dtype}")
+        hws = [(int(f.shape[1]), int(f.shape[2])) for f in features]
+        self._check(hws, dtype, boxes, levels, len(features), strides)
         for f in features:
-            if (f.device != dev or f.dtype != dtype or f.dim() != 4
+            if (f.device != boxes.device or f.dtype != dtype or f.dim() != 4
                     or f.shape[0] != b or f.shape[-1] != c
                     or not f.is_contiguous()):
                 raise ValueError(
                     "features must be contiguous [B, H, W, C] tensors of one "
                     "dtype on the boxes' device")
-        if (boxes.dtype != torch.float32 or boxes.shape != (b, p, 4)
-                or not boxes.is_contiguous()):
-            raise ValueError("boxes must be a contiguous float32 [B, P, 4]")
-        if (levels.device != dev or levels.dtype != torch.int32
-                or levels.shape != (b, p) or not levels.is_contiguous()):
-            raise ValueError("levels must be a contiguous int32 [B, P] on the "
-                             "boxes' device")
-        if len(features) != len(strides):
-            raise ValueError("one stride per feature level")
-
         out = torch.empty((b, p, output_size, output_size, c), dtype=dtype,
-                          device=dev)
+                          device=boxes.device)
         if b * p == 0:
             return out
-        ptrs = np.asarray([f.data_ptr() for f in features], np.uint64)
-        hw = np.asarray([[f.shape[1], f.shape[2]] for f in features],
-                        np.int32)
-        scale = np.asarray([1.0 / s for s in strides], np.float32)
-        fn = self._load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(ptrs.ctypes.data, hw.ctypes.data, scale.ctypes.data,
-                    len(features), boxes.data_ptr(), levels.data_ptr(), p,
-                    b * p, c, output_size, sampling_ratio,
-                    _DTYPE_CODES[dtype], out.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"roi_align_fwd launch failed: CUDA error {rc} "
-                               f"({self._err(rc).decode()})")
-        self.launches += 1
+        self._launch([f.data_ptr() for f in features], hws, strides, boxes,
+                     levels, c, output_size, sampling_ratio, dtype,
+                     out.data_ptr())
         return out
 
 
+class RoiAlignBwd(_RoiAlignKernel):
+    """K2 backward: d(features) of ``RoiAlignFwd`` for a cotangent."""
+
+    name = library = "roi_align_bwd"
+    source = "aldi_tpu_torch/csrc/roi_align_bwd.cu"
+    replaces = "aldi_tpu/ops/roi_align.py:342"
+
+    def __call__(self, grad, boxes, levels, feat_shapes, feat_dtype, strides,
+                 sampling_ratio=2):
+        """grad [B, P, out, out, C] (float32 or bfloat16) on the card; boxes
+        and levels as for the forward; feat_shapes the per-level (H_l, W_l).
+        Returns per-level [B, H_l, W_l, C] gradients in ``feat_dtype``,
+        accumulated in float32."""
+        b, p, output_size, _, c = grad.shape
+        self._check(feat_shapes, grad.dtype, boxes, levels,
+                    len(feat_shapes), strides)
+        if feat_dtype not in _DTYPE_CODES:
+            raise ValueError(f"roi_align_bwd returns float32 or bfloat16, "
+                             f"got {feat_dtype}")
+        if grad.device != boxes.device or not grad.is_contiguous():
+            raise ValueError("grad must be contiguous on the boxes' device")
+        tables = [torch.zeros((b, h, w, c), dtype=torch.float32,
+                              device=boxes.device) for h, w in feat_shapes]
+        if b * p:
+            self._launch([t.data_ptr() for t in tables], feat_shapes,
+                         strides, boxes, levels, c, output_size,
+                         sampling_ratio, grad.dtype, grad.data_ptr())
+        return [t.to(feat_dtype) for t in tables]
+
+
 roi_align_fwd = RoiAlignFwd()
+roi_align_bwd = RoiAlignBwd()

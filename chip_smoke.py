@@ -7,14 +7,18 @@ It imports nothing of JAX or of the JAX package. Phases, in order; any
 failure exits non-zero:
 
 1. Print the card's name and power limit and build every kernel of the
-   serving path from ``aldi_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together), with the build time and the compiler's register and
-   spill report.
-2. Kernel phase: the ROIAlign forward kernel against its plain PyTorch
-   version at the flagship's shapes (8 images, 1000 boxes each, p2..p5 of a
-   1024x2048 canvas, 256 channels), in float32 and in bfloat16, with boxes
-   of every level, some out of range and some invalid; its time, the plain
-   version's time and the least time the card could take.
+   serving and training paths from ``aldi_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together), with the build time and the
+   compiler's register and spill report.
+2. Kernel phase, each kernel against its plain PyTorch version at the
+   flagship's shapes, with its time, the plain version's time and the
+   least time the card could take: the ROIAlign forward (8 images, 1000
+   boxes each, p2..p5 of a 1024x2048 canvas, 256 channels) in float32 and
+   bfloat16, with boxes of every level, some out of range and some
+   invalid; the anchor matcher K1a/K1b (4 images, the canvas's 523,776
+   anchors, 100 gt slots of which about 30% invalid, boxes of 16-512 px),
+   exactly equal; the ROIAlign backward (4 images, 512 boxes each) in
+   float32 and bfloat16.
 3. Serving phase: the flagship detector (Faster R-CNN R50-FPN,
    ``configs/cityscapes/ALDI-Best-Cityscapes.yaml``: 8 classes, canvas
    1024x2048, bfloat16) with seeded random weights answers one warm-up
@@ -26,7 +30,19 @@ failure exits non-zero:
    card is held against the same detector on the CPU, one request is timed
    stage by stage, and one is traced with torch.profiler for the device's
    busy share.
-4. Print the card line, a ``{"kernels": [...]}`` line and, last,
+4. Training phase: the flagship's ALDI++ DAOD step (bfloat16, one
+   backward per stream, soft distillation, erasing on the labeled stream,
+   MIC on the unlabeled one) through ``create_train_state``, ``draw_step``
+   and ``make_train_step``, with SOLVER.IMS_PER_BATCH cut from 48 to 8 (4
+   labeled + 4 unlabeled images of 1024x2048 per step), seeded weights for
+   student and teacher, synthetic images and 5-30 gt boxes per labeled
+   image: one warm-up step and 3 timed steps, launch counts set to 0 just
+   before the timed steps and read just after. Checks: finite losses,
+   trainable parameters moved, stem and res2 did not, the teacher differs
+   from the student after step 2, every kernel launched. Then one step by
+   stage, one traced step, and a tiny float32 step on the card against the
+   same step on the CPU.
+5. Print the card line, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
@@ -34,6 +50,7 @@ from the host clock around work that ends in ``torch.cuda.synchronize()``.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,6 +62,9 @@ FLAGSHIP = os.path.join(ROOT, "configs", "cityscapes",
                         "ALDI-Best-Cityscapes.yaml")
 BATCH = 8  # the evaluator's default batch size
 TIMED_REQUESTS = 3
+TRAIN_IMAGES = 4  # per stream: SOLVER.IMS_PER_BATCH 8 = 4 labeled + 4 unlabeled
+TIMED_STEPS = 3
+MATCH_OPS = 12  # float operations per IoU (4 min/max, 3 sub, 2 mul, add, div)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): device
 # memory 3.35 TB/s; float32 on the CUDA cores 67 TFLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -170,6 +190,179 @@ def synthetic_roi_inputs(dtype, seed, b=BATCH, p=1000, c=256,
     return feats, boxes.contiguous(), box_levels(boxes, valid, ROI_STRIDES)
 
 
+def synthetic_gt(gen, b, m, canvas, n_valid=None, invalid_frac=0.3,
+                 num_classes=8):
+    """gt boxes [b, m, 4] of 16-512 px sides inside the canvas, classes and
+    valid flags made on the card from ``gen``: ``n_valid`` [b] real boxes
+    first (else about ``invalid_frac`` of the slots invalid, anywhere)."""
+    import torch
+
+    def u(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    w, h = u(16, 512, (b, m)), u(16, 512, (b, m))
+    x0 = u(0, 1, (b, m)) * (canvas[1] - w)
+    y0 = u(0, 1, (b, m)) * (canvas[0] - h)
+    boxes = torch.stack([x0, y0, x0 + w, y0 + h], -1)
+    if n_valid is None:
+        valid = u(0, 1, (b, m)) >= invalid_frac
+    else:
+        valid = torch.arange(m, device="cuda")[None] < n_valid[:, None]
+    classes = (u(0, 1, (b, m)) * num_classes).to(torch.int32)
+    boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    return boxes.contiguous(), torch.where(valid, classes, 0), valid
+
+
+def match_bounds(anchors, gt_valid, best):
+    """Least time (ms) the card could take for K1a and for K1b on these
+    inputs, and what sets each. Bytes: the anchors read once, the gt, flags
+    (and for K1b the per-gt best) read once, the outputs written once (K1a
+    8 B per anchor and image plus the per-gt best, K1b 1 B). Operations:
+    MATCH_OPS per IoU that the data needs (K1a: every anchor against every
+    valid gt; K1b: against the valid gt whose best IoU is > 0), over the
+    float32 CUDA-core rate."""
+    n = anchors.shape[0]
+    b, m = gt_valid.shape
+    gt_bytes = b * m * 17
+    out = []
+    for n_bytes, pairs in (
+            (n * 16 + gt_bytes + b * n * 8 + b * m * 4,
+             int(gt_valid.sum()) * n),
+            (n * 16 + gt_bytes + b * m * 4 + b * n,
+             int((gt_valid & (best > 0)).sum()) * n)):
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = pairs * MATCH_OPS / PEAK_F32_FLOPS * 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def check_match(anchors, gt, valid, plain_iters=3, kernel_iters=20):
+    """K1a and K1b against their plain versions (exact equality of vals,
+    idx, the per-gt best, the low-quality mask and the labels), with
+    times. Returns {name: numbers}; fails the run on any difference."""
+    import torch
+
+    from aldi_tpu_torch.ops.match_kernel import (
+        low_quality_mask, low_quality_mask_plain, match_boxes,
+        match_boxes_plain, match_iou, match_iou_plain)
+
+    got = match_iou(anchors, gt, valid)
+    want = match_iou_plain(anchors, gt, valid)
+    lowq = low_quality_mask(anchors, gt, valid, got[2])
+    lowq_want = low_quality_mask_plain(anchors, gt, valid, want[2])
+    labels = match_boxes(anchors, gt, valid, [0.3, 0.7], [0, -1, 1], True)
+    labels_want = match_boxes_plain(anchors, gt, valid, [0.3, 0.7],
+                                    [0, -1, 1], True)
+    torch.cuda.synchronize()
+    diffs = {"vals": int((got[0] != want[0]).sum()),
+             "idx": int((got[1] != want[1]).sum()),
+             "best": int((got[2] != want[2]).sum()),
+             "low-quality mask": int((lowq != lowq_want).sum()),
+             "matched idx": int((labels[0] != labels_want[0]).sum()),
+             "labels": int((labels[1] != labels_want[1]).sum())}
+    ok = not any(diffs.values())
+    (b1, by1), (b2, by2) = match_bounds(anchors, valid, want[2])
+    out = {}
+    for name, fn, plain, bound, by in (
+            ("match_iou", lambda: match_iou(anchors, gt, valid),
+             lambda: match_iou_plain(anchors, gt, valid), b1, by1),
+            ("low_quality_mask",
+             lambda: low_quality_mask(anchors, gt, valid, want[2]),
+             lambda: low_quality_mask_plain(anchors, gt, valid, want[2]),
+             b2, by2)):
+        err = (max(float((got[0] - want[0]).abs().max()),
+                   float((got[2] - want[2]).abs().max()))
+               if name == "match_iou" else float((lowq != lowq_want).any()))
+        out[name] = dict(max_abs_err=err, ms=cuda_ms(fn, kernel_iters),
+                         plain_ms=cuda_ms(plain, plain_iters, warmup=1),
+                         bound_ms=bound, bound_by=by)
+    b, m = valid.shape
+    print(f"[kernel] matcher K1a/K1b: {b} images, {anchors.shape[0]} anchors,"
+          f" {m} gt slots, {int(valid.sum())} valid; differences from the "
+          f"plain version {diffs} (tolerance: exact): "
+          f"{'ok' if ok else 'FAIL'}; positives "
+          f"{int((labels[1] == 1).sum())}, low-quality matches "
+          f"{int(lowq.sum())}; " + "; ".join(
+              f"{k} {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']})"
+              for k, v in out.items()), flush=True)
+    if not ok:
+        fail("the matcher kernels disagree with their plain versions")
+    return out
+
+
+def roi_bwd_bound(grad, boxes, levels, feat_shapes):
+    """Least time (ms) the card could take for this ROIAlign backward:
+    bytes (the cotangent and the boxes read once, the dense per-level
+    gradient written once in the cotangent's dtype) against float32
+    operations (4 products and 4 sums per sample and channel that reads
+    features)."""
+    from aldi_tpu_torch.ops.roi_align import sample_geometry
+
+    b, p, out, _, c = grad.shape
+    samples = sum(int(sample_geometry(boxes[i], levels[i], feat_shapes,
+                                      ROI_STRIDES, out)[2].sum())
+                  for i in range(b))
+    esize = grad.element_size()
+    n_bytes = (grad.numel() * esize + boxes.numel() * 4 + levels.numel() * 4
+               + b * sum(h * w for h, w in feat_shapes) * c * esize)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = samples * c * 8 / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_roi_bwd(dtype, seed, b=TRAIN_IMAGES, p=512, plain_iters=2,
+                  kernel_iters=10):
+    """The ROIAlign backward kernel against ``roi_align_plain_backward`` at
+    the training step's shapes, with times. Tolerance: float32, 1e-5 of the
+    gradient's scale (the kernel's atomics add in another order on every
+    run); bfloat16, one bf16 ulp of each value after the cast."""
+    import torch
+
+    from aldi_tpu_torch.ops.roi_align import roi_align_plain_backward
+    from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd
+
+    feats, boxes, levels = synthetic_roi_inputs(dtype, seed, b=b, p=p)
+    shapes = [(int(f.shape[1]), int(f.shape[2])) for f in feats]
+    del feats
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    grad = torch.randn((b, p, 7, 7, 256), generator=g, device="cuda").to(
+        dtype)
+    got = roi_align_bwd(grad, boxes, levels, shapes, dtype, ROI_STRIDES)
+    want = roi_align_plain_backward(grad, boxes, levels, shapes, dtype,
+                                    ROI_STRIDES)
+    torch.cuda.synchronize()
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(got, want))
+    if dtype == torch.float32:
+        scale = max(float(y.abs().max()) for y in want)
+        ok = err <= 1e-5 * scale
+        tol_text = f"{1e-5 * scale:.3g} (float32: 1e-5 of the scale)"
+    else:
+        ok = all(bool(((x.float() - y.float()).abs()
+                       <= y.float().abs() * 2.0 ** -7 + 1e-6).all())
+                 for x, y in zip(got, want))
+        tol_text = "one bfloat16 ulp of each value (2^-7 relative)"
+    del got, want
+    ms = cuda_ms(lambda: roi_align_bwd(grad, boxes, levels, shapes, dtype,
+                                       ROI_STRIDES), kernel_iters)
+    plain_ms = cuda_ms(lambda: roi_align_plain_backward(
+        grad, boxes, levels, shapes, dtype, ROI_STRIDES), plain_iters,
+        warmup=1)
+    bound_ms, bound_by = roi_bwd_bound(grad, boxes, levels, shapes)
+    print(f"[kernel] roi_align_bwd: boxes {(b, p)}, dtype "
+          f"{str(dtype).split('.')[-1]}: max abs err {err:.3g}, tolerance "
+          f"{tol_text}: {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+          f"(zeroed float32 tables + launch + cast), plain {plain_ms:.3f} ms,"
+          f" bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    if not ok:
+        fail("roi_align_bwd disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def synthetic_request(gen, canvas):
     """One request: BATCH images of uniform noise in 0..255 on the card and
     their valid sizes (most full-canvas, two smaller)."""
@@ -293,6 +486,317 @@ def tiny_reference_check():
         fail("tiny detector: card and CPU disagree")
 
 
+def synthetic_train_batch(gen, canvas, max_gt, num_classes, n):
+    """One DAOD batch on the card: n labeled images of uniform noise in
+    0..255 with 5-30 gt boxes each (classes 0..num_classes-1, padded to
+    max_gt) and n unlabeled noise images; most full-canvas, one smaller."""
+    import torch
+
+    def images():
+        return torch.rand((n, canvas[0], canvas[1], 3), generator=gen,
+                          device="cuda") * 255.0
+
+    sizes = torch.tensor([list(canvas)] * n, dtype=torch.int32)
+    sizes[1] = torch.tensor([canvas[0] - 124, canvas[1] - 248])
+    sizes = sizes.cuda()
+    n_gt = torch.randint(5, 31, (n,), generator=gen, device="cuda")
+    boxes, classes, valid = synthetic_gt(
+        gen, n, max_gt, (canvas[0] - 124, canvas[1] - 248), n_valid=n_gt,
+        num_classes=num_classes)
+    return {"labeled": {"image": images(), "sizes": sizes, "boxes": boxes,
+                        "classes": classes, "valid": valid},
+            "unlabeled": {"image": images(), "sizes": sizes.clone()}}
+
+
+def params_of(module):
+    return {k: v.detach().clone() for k, v in module.named_parameters()}
+
+
+def training_phase(card, kernels):
+    """The flagship DAOD step at full width through its entry points (see
+    the module docstring). Returns the launch counts of the timed steps."""
+    import torch
+
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = get_cfg()
+    cfg.merge_from_file(FLAGSHIP)
+    print(f"[train] reduction: SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}"
+          f" -> {2 * TRAIN_IMAGES} ({TRAIN_IMAGES} labeled + {TRAIN_IMAGES} "
+          f"unlabeled images per step); widths, depth and canvas as "
+          f"published", flush=True)
+    cfg.SOLVER.IMS_PER_BATCH = 2 * TRAIN_IMAGES
+    t0 = time.perf_counter()
+    det = build_detector(cfg)
+    state = create_train_state(cfg, det, seeded_weights(det, seed=0))
+    step = make_train_step(cfg, det)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_steps = 1 + TIMED_STEPS + 2  # warm-up, timed, staged, traced
+    batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
+                                     det.num_classes, TRAIN_IMAGES)
+               for _ in range(n_steps)]
+    draws = [draw_step(gen, det, TRAIN_IMAGES, TRAIN_IMAGES)
+             for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    print(f"[train] R{cfg.MODEL.RESNETS.DEPTH}-FPN, {det.num_classes} "
+          f"classes, canvas {det.canvas}, {str(det.dtype).split('.')[-1]}, "
+          f"BACKWARD_AT_END {cfg.SOLVER.BACKWARD_AT_END}; state, batches and "
+          f"draws made in {time.perf_counter() - t0:.2f} s", flush=True)
+    start = params_of(state.student)
+
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0], draws[0])
+    torch.cuda.synchronize()
+    print(f"[train] warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms",
+          flush=True)
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i in range(1, 1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i], draws[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if state.step == 2:
+            teacher = params_of(state.teacher)
+            diff = max(float((teacher[k] - v).abs().max())
+                       for k, v in params_of(state.student).items())
+            if not diff > 0:
+                fail("the teacher equals the student after step 2")
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, mm in enumerate(metrics):
+        bad = [k for k, v in mm.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"non-finite losses at timed step {i}: {bad}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the training path never launched {name}")
+    moved = frozen_moved = 0
+    for name, p in state.student.named_parameters():
+        changed = not torch.equal(p.detach(), start[name])
+        if ".stem." in name or ".res2." in name:
+            frozen_moved += changed
+        else:
+            moved += changed
+    if frozen_moved:
+        fail(f"{frozen_moved} stem/res2 parameters moved")
+    n_trainable = sum(p.requires_grad for p in state.student.parameters())
+    if moved < n_trainable:
+        fail(f"only {moved} of {n_trainable} trainable parameters moved")
+    med = sorted(times)[len(times) // 2]
+    print(f"[train] {TIMED_STEPS} steps: ms {', '.join(f'{x:.2f}' for x in times)}"
+          f" (median {med:.2f}), {2 * TRAIN_IMAGES * 1e3 / med:.2f} images/s "
+          f"at the median; launches {launches}; peak device memory "
+          f"{peak:.2f} GiB; num_pseudo_labels "
+          f"{[mm['num_pseudo_labels'] for mm in metrics]}; {moved} of "
+          f"{n_trainable} trainable parameters moved, stem and res2 did not; "
+          f"card {card}", flush=True)
+    print("[train] losses of the last timed step: " + json.dumps(
+        {k: round(v, 5) for k, v in metrics[-1].items()}), flush=True)
+
+    stages = {}
+    t = [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = (now - t[0]) * 1e3
+        t[0] = now
+
+    torch.cuda.synchronize()
+    t[0] = time.perf_counter()
+    state, _ = step(state, batches[-2], draws[-2], mark=mark)
+    print("[train] one step by stage (ms, synchronized): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    traced = device_busy(lambda: step(state, batches[-1], draws[-1]))
+    if traced is None:
+        print("[train] device busy share: not measured (the profiler saw no "
+              "device events)")
+    else:
+        busy, top = traced
+        print(f"[train] traced step: device busy {busy:.2f} ms of the "
+              f"{med:.2f} ms median step, idle share "
+              f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
+              + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
+              flush=True)
+    return launches
+
+
+def moved(tree, device):
+    """Tensors of a nested structure (dicts, lists, tuples, dataclasses such
+    as ``Instances``) moved to ``device``."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(moved(v, device) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: moved(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def check_card_teacher(card, got, want, module, images, sizes, draws):
+    """The card's teacher pass (``got``: ctx, pseudo-labels, metrics)
+    against the CPU's (``want``, moved to the card): FPN features within
+    1e-4 of each level's scale, pseudo-labels' valid flags and classes
+    equal and boxes within 1e-3 px. Then, on the CPU's pseudo-labels, the
+    card's anchor sampler (K1a/K1b on valid gt) must pick the CPU's anchor
+    set exactly, and the card's objectness and deltas at that set must
+    agree within 1e-4 of their scale."""
+    import torch
+
+    from aldi_tpu_torch.models.rpn import label_anchors_sampled
+
+    (ctx, pseudo, _), (w_ctx, w_pseudo, w_metrics) = got, want
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+
+    feat_err = max(rel(a, b) for a, b in zip(ctx["feats"], w_ctx["feats"]))
+    same_valid = torch.equal(pseudo.valid, w_pseudo.valid)
+    m = w_pseudo.valid
+    same_cls = torch.equal(pseudo.classes[m], w_pseudo.classes[m])
+    box_err = float((pseudo.boxes[m] - w_pseudo.boxes[m]).abs().max()) \
+        if bool(m.any()) else 0.0
+    idx, valid, fg, _ = label_anchors_sampled(
+        card.anchors_cat, w_pseudo.boxes, w_pseudo.valid, draws,
+        card.rpn_params["batch_size_per_image"],
+        card.rpn_params["positive_fraction"])
+    same_set = all(torch.equal(x, w_ctx[k]) for x, k in (
+        (idx, "anchor_idx"), (valid, "anchor_valid"), (fg, "anchor_fg")))
+    own_set = torch.equal(ctx["anchor_idx"], w_ctx["anchor_idx"])
+    _, logits, deltas, _ = card.forward_teacher(module, images, sizes)
+    head_err = max(
+        rel(torch.gather(logits, 1, idx), w_ctx["t_obj"]),
+        rel(torch.gather(deltas, 1, idx[..., None].expand(-1, -1, 4)),
+            w_ctx["t_delta"]))
+    n_pseudo = float(w_metrics["num_pseudo_labels"])
+    print(f"[reference] tiny teacher pass, card vs CPU: {n_pseudo:g} "
+          f"pseudo-labels per image; features max err / scale "
+          f"{feat_err:.3g} (tol 1e-4); pseudo-labels valid equal {same_valid},"
+          f" classes equal {same_cls}, boxes max abs err {box_err:.3g} (tol "
+          f"1e-3); anchor set from the CPU's pseudo-labels equal {same_set}; "
+          f"from its own {own_set}; objectness and deltas at it max err / "
+          f"scale {head_err:.3g} (tol 1e-4)", flush=True)
+    if not n_pseudo > 0:
+        fail("tiny teacher pass: no pseudo-labels to check")
+    if (feat_err > 1e-4 or not same_valid or not same_cls or box_err > 1e-3
+            or not same_set or head_err > 1e-4):
+        fail("tiny teacher pass: card and CPU disagree")
+
+
+def tiny_train_reference_check():
+    """One DAOD step of a tiny float32 detector (depth 26, canvas 128, 3
+    classes, the flagship's recipe) on the card against the same step on
+    the CPU: the same seeded weights, batch and draws (made on the CPU and
+    moved to the card), TF32 off for matrix products and cuDNN. The card's
+    teacher pass is held against the CPU's (``check_card_teacher``), and
+    the card's step then goes on from the CPU's teacher context and
+    pseudo-labels: the low-quality match tests IoU equality, and
+    pseudo-label boxes one ulp apart on the two devices could break a tie.
+    So the distill stream's anchor matching and sampling on the card run on
+    the CPU's pseudo-labels. Losses agree within 1e-4 relative, parameters
+    within 1e-5."""
+    import numpy as np
+    import torch
+
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = get_cfg()
+    cfg.merge_from_file(FLAGSHIP)
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 3
+    cfg.MODEL.RESNETS.DEPTH = 26
+    cfg.TPU.CANVAS = (128, 128)
+    cfg.TPU.MAX_GT = 8
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    for k, v in (("PRE_NMS_TOPK_TRAIN", 64), ("POST_NMS_TOPK_TRAIN", 32),
+                 ("PRE_NMS_TOPK_TEST", 64), ("POST_NMS_TOPK_TEST", 32)):
+        cfg.MODEL.RPN[k] = v
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
+    cfg.TEST.DETECTIONS_PER_IMAGE = 10
+    cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD = 0.5
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    boxes[:, :3, :2] = rng.uniform(0, 80, (2, 3, 2))
+    boxes[:, :3, 2:] = boxes[:, :3, :2] + rng.uniform(12, 48, (2, 3, 2))
+    batch = {"labeled": {
+        "image": rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32),
+        "sizes": np.array([[128, 128], [112, 120]], np.int32),
+        "boxes": boxes, "classes": rng.integers(0, 3, (2, 8)).astype(
+            np.int32), "valid": np.arange(8)[None].repeat(2, 0) < 3},
+        "unlabeled": {
+        "image": rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32),
+        "sizes": np.array([[128, 128], [120, 100]], np.int32)}}
+    batch = {s: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+             for s, d in batch.items()}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu, card = build_detector(cfg, device="cpu"), build_detector(cfg)
+        weights = seeded_weights(cpu, seed=1)
+        draws = draw_step(torch.Generator().manual_seed(3), cpu, 2, 2)
+        teacher_ctx = {}
+        cpu_teacher_ctx = cpu.forward_teacher_ctx
+        card_teacher_ctx = card.forward_teacher_ctx
+
+        def record(*args, **kwargs):
+            teacher_ctx["cpu"] = cpu_teacher_ctx(*args, **kwargs)
+            return teacher_ctx["cpu"]
+
+        def from_cpu(module, images, sizes, t_draws, **kwargs):
+            got = card_teacher_ctx(module, images, sizes, t_draws, **kwargs)
+            want = moved(teacher_ctx["cpu"], card.device)
+            check_card_teacher(card, got, want, module, images, sizes,
+                               t_draws)
+            return want
+
+        cpu.forward_teacher_ctx = record
+        card.forward_teacher_ctx = from_cpu
+        results = []
+        for det in (cpu, card):
+            state = create_train_state(cfg, det, weights)
+            step = make_train_step(cfg, det)
+            state, m = step(state, moved(batch, det.device),
+                            moved(draws, det.device))
+            results.append(({k: float(v) for k, v in m.items()},
+                            params_of(state.student)))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (want_m, want_p), (got_m, got_p) = results
+    loss_err = max(abs(got_m[k] - v) / max(abs(v), 1e-3)
+                   for k, v in want_m.items())
+    param_err = max(float((got_p[k].cpu() - v).abs().max())
+                    for k, v in want_p.items())
+    print(f"[reference] tiny float32 DAOD step, card vs CPU: losses "
+          f"{ {k: round(v, 5) for k, v in want_m.items()} }; worst relative "
+          f"loss error {loss_err:.3g} (tol 1e-4), parameters max abs err "
+          f"{param_err:.3g} (tol 1e-5)", flush=True)
+    if loss_err > 1e-4 or param_err > 1e-5:
+        fail("tiny DAOD step: card and CPU disagree")
+
+
 def staged_request(det, images, sizes):
     """One request with a synchronize after each stage: ms per stage."""
     import torch
@@ -337,11 +841,11 @@ def staged_request(det, images, sizes):
     return stages
 
 
-def device_busy(fn, images, sizes):
-    """Trace one request with torch.profiler. Returns the device's busy time
-    in ms (the union of its kernel and copy intervals) and the six kernels
-    with the most time (name, ms, calls), or None when the trace holds no
-    device events."""
+def device_busy(fn):
+    """Trace one call of ``fn`` (a request or a step) with torch.profiler.
+    Returns the device's busy time in ms (the union of its kernel and copy
+    intervals) and the six kernels with the most time (name, ms, calls), or
+    None when the trace holds no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -349,7 +853,7 @@ def device_busy(fn, images, sizes):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn(images, sizes)
+        fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -383,10 +887,12 @@ def main():
     from aldi_tpu_torch.engine.export import make_serving_fn
     from aldi_tpu_torch.models import build_detector
     from aldi_tpu_torch.ops import _build
+    from aldi_tpu_torch.ops.match_kernel import low_quality_mask, match_iou
     from aldi_tpu_torch.ops.roi_align import box_levels
-    from aldi_tpu_torch.ops.roi_align_kernel import roi_align_fwd
+    from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 
-    kernels = [roi_align_fwd]
+    serving_kernels = [roi_align_fwd]
+    kernels = [match_iou, low_quality_mask, roi_align_fwd, roi_align_bwd]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -396,9 +902,11 @@ def main():
 
     # -- 1. build every kernel from the checkout's sources
     t0 = time.perf_counter()
-    logs = _build.build([k.name for k in kernels])
-    print(f"[build] {len(logs)} of {len(kernels)} kernel libraries compiled "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    libraries = sorted({k.library for k in kernels})
+    logs = _build.build(libraries)
+    print(f"[build] {len(logs)} of {len(libraries)} kernel libraries "
+          f"({', '.join(libraries)}) compiled in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -409,6 +917,17 @@ def main():
         feats, boxes, levels = synthetic_roi_inputs(dtype, seed)
         check_roi("flagship shapes, synthetic boxes", feats, boxes, levels)
         del feats, boxes, levels
+    torch.cuda.empty_cache()
+    cfg = get_cfg()
+    cfg.merge_from_file(FLAGSHIP)
+    anchors = build_detector(cfg).anchors_cat
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    gt, _, gt_valid = synthetic_gt(gen, TRAIN_IMAGES, cfg.TPU.MAX_GT,
+                                   (1024, 2048))
+    numbers = check_match(anchors, gt, gt_valid)
+    del anchors, gt, gt_valid
+    for dtype, seed in ((torch.float32, 14), (torch.bfloat16, 15)):
+        numbers["roi_align_bwd"] = check_roi_bwd(dtype, seed)
     torch.cuda.empty_cache()
 
     # -- 3. serving phase: the flagship detector through its entry points
@@ -430,7 +949,7 @@ def main():
     print(f"[serving] warm-up request: {(time.perf_counter() - t0) * 1e3:.1f}"
           f" ms", flush=True)
 
-    for k in kernels:
+    for k in serving_kernels:
         k.launches = 0
     latencies, n_det = [], 0
     for images, sizes in requests[1:]:
@@ -440,7 +959,7 @@ def main():
         latencies.append((time.perf_counter() - t0) * 1e3)
         n_det += check_detections(out, sizes, det.num_classes,
                                   cfg.TEST.DETECTIONS_PER_IMAGE)
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in serving_kernels}
     for name, n in launches.items():
         if n == 0:
             fail(f"the serving path never launched {name}")
@@ -462,7 +981,8 @@ def main():
     feats = [f.contiguous() for f in feats[:-1]]
     pboxes = pboxes.float().contiguous()
     levels = box_levels(pboxes, pvalid, det.roi_strides)
-    real = check_roi("serving request, real proposals", feats, pboxes, levels)
+    numbers["roi_align_fwd"] = check_roi("serving request, real proposals",
+                                         feats, pboxes, levels)
     del feats, logits, deltas
 
     stages = staged_request(det, images, sizes)
@@ -470,7 +990,7 @@ def main():
           + "; ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
     print(f"[serving] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    traced = device_busy(fn, images, sizes)
+    traced = device_busy(lambda: fn(images, sizes))
     if traced is None:
         print("[serving] device busy share: not measured (the profiler saw "
               "no device events)")
@@ -487,14 +1007,19 @@ def main():
 
     tiny_reference_check()
 
-    # -- 4. result lines
+    # -- 4. training phase: the flagship's DAOD step through its entry points
+    launches = training_phase(card, kernels)
+    torch.cuda.empty_cache()
+    tiny_train_reference_check()
+
+    # -- 5. result lines; launches are the training steps' (K2's forward
+    # also serves, see the [serving] line), the other numbers the kernel
+    # phase's at the flagship shapes (K2's forward: a request's proposals)
     print(f"[card] {card}")
     entries = [{
         "name": k.name, "route": "cuda", "source": k.source,
         "replaces": k.replaces, "launches": launches[k.name],
-        "max_abs_err": real["max_abs_err"], "ms": real["ms"],
-        "plain_ms": real["plain_ms"], "bound_ms": real["bound_ms"],
-        "bound_by": real["bound_by"], "library_ms": None,
+        **numbers[k.name], "library_ms": None,
     } for k in kernels]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
