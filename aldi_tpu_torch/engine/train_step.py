@@ -1,6 +1,7 @@
 """The ALDI++ DAOD training step.
 
-Port of ``aldi_tpu/engine/train_step.py:100-393`` for the R-CNN family, with
+Port of ``aldi_tpu/engine/train_step.py:100-393`` for the R-CNN family
+(ResNet-FPN and ViTDet backbones), with
 the same stream logic: the EMA update before the step; the teacher pass
 (pseudo-labels and distill targets, no gradient); strong views of the
 labeled and unlabeled batches derived on the device; the student's streams
@@ -101,8 +102,9 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
               n_unlabeled: int) -> dict:
     """Every random draw of one step, made from ``gen`` on its device and
     returned on the detector's: per student stream the anchor sampler's and
-    the ROI sampler's draws, the teacher's anchor sampler's draws, and the
-    strong augmentation's draws per batch."""
+    the ROI sampler's draws (and, for a ViT backbone, the drop-path keep
+    masks), the teacher's anchor sampler's draws, and the strong
+    augmentation's draws per batch."""
     cfg = detector.cfg
     s = stream_flags(cfg)
     n_anchors = detector.anchors_cat.shape[0]
@@ -117,9 +119,19 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
         return subsample_indices_draws(gen, (b,), n_anchors, k_rpn,
                                        rpn["positive_fraction"])
 
+    net = getattr(detector.module.backbone, "net", None)  # a ViT trunk
+    if net is not None:
+        keep = torch.tensor([1.0 - blk.drop_path for blk in net.blocks],
+                            device=gen.device)
+
     def student(b):
-        return {"rpn": anchors(b),
-                "roi": sample_proposals_draws(gen, (b,), n_cand)}
+        out = {"rpn": anchors(b),
+               "roi": sample_proposals_draws(gen, (b,), n_cand)}
+        if net is not None:
+            # drop-path keep masks [2 (attention, MLP), depth, B]
+            out["drop"] = torch.rand((2, len(keep), b), generator=gen,
+                                     device=gen.device) < keep[:, None]
+        return out
 
     out = {}
     if s.weak:

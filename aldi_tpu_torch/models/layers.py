@@ -1,6 +1,7 @@
 """Conv and linear layers that keep float32 parameters and compute in a
 given dtype, as flax's ``nn.Conv(dtype=...)``/``nn.Dense(dtype=...)`` do in
-the JAX package, with the JAX package's initializers."""
+the JAX package, with the JAX package's initializers; and flax's LayerNorm
+(eps 1e-6, float32 statistics, then the cast)."""
 
 import math
 
@@ -61,3 +62,52 @@ class Linear(nn.Linear):
     def init_weights(self, gen):
         _init_weight(self.weight, self.in_features, self.init_std, gen)
         nn.init.zeros_(self.bias)
+
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+def layer_norm(x, norm, dtype):
+    """flax ``LayerNorm(dtype=float32)``: float32 statistics, eps 1e-6, then
+    the cast to the compute dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], norm.weight, norm.bias,
+                        LN_EPS).to(dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last dim with eps 1e-6 (flax's default)."""
+
+    def __init__(self, dim):
+        super().__init__(dim, eps=LN_EPS)
+
+    def init_weights(self, gen):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
+class ChannelLayerNorm(LayerNorm):
+    """LayerNorm over the channels of an NCHW tensor (float32, then cast to
+    ``compute_dtype``)."""
+
+    def __init__(self, dim, compute_dtype=torch.float32):
+        super().__init__(dim)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return layer_norm(x.permute(0, 2, 3, 1), self,
+                          self.compute_dtype).permute(0, 3, 1, 2)
+
+
+class ConvNorm(Conv2d):
+    """Bias-free conv followed by a channel LayerNorm (detectron2's
+    ``Conv2d(norm=LayerNorm)``: ``{name}.weight``, ``{name}.norm.*``)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, *,
+                 compute_dtype=torch.float32, init_std=None):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=kernel_size // 2, bias=False,
+                         compute_dtype=compute_dtype, init_std=init_std)
+        self.norm = ChannelLayerNorm(out_channels, compute_dtype)
+
+    def forward(self, x):
+        return self.norm(super().forward(x))

@@ -1,8 +1,9 @@
 """GeneralizedRCNN: parameter module + train/inference orchestrator.
 
-Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN backbone: the
-serving path (``RCNNDetector.forward_inference``, ``:694-726``) and the DAOD
-training interface (``forward_train``, ``forward_teacher``,
+Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN and the ViTDet-B/L
+backbones (``MODEL.BACKBONE.NAME``, ``:130-193``): the serving path
+(``RCNNDetector.forward_inference``, ``:694-726``) and the DAOD training
+interface (``forward_train``, ``forward_teacher``,
 ``forward_teacher_ctx``, ``distill_losses``, ``:379-659``). ``RCNN`` holds
 the weights under detectron2's module names; ``RCNNDetector`` owns the
 config state (anchors for the fixed canvas, thresholds, top-k sizes) and
@@ -12,7 +13,8 @@ EMA teacher). Public stage functions keep the JAX package's layouts:
 images [B, H, W, 3] in 0..255, FPN levels NHWC (views of NCHW tensors in
 ``channels_last`` memory format), pooled features [B, P, 7, 7, C].
 Domain alignment (``_align_losses``, ``forward_domain_align``) is not
-ported yet.
+ported yet. The ViTDet backbones take drop-path keep masks in training
+(``draws["drop"]``); the teacher and serving run without drop path.
 """
 
 import math
@@ -31,31 +33,46 @@ from .roi_heads import (FastRCNNConvFCHead, FastRCNNOutputLayers, box_pooler,
                         sample_proposals)
 from .rpn import (StandardRPNHead, generate_proposals, label_anchors_sampled,
                   rpn_losses)
+from .vit import ViTDetBackbone
+
+VIT_BACKBONES = ("build_vitdet_b_backbone", "build_vitdet_l_backbone")
 
 _NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Slices still "
                "to port'")
 
 
 class RCNN(nn.Module):
-    """Parameter container: ``backbone`` (FPN over ResNet),
-    ``proposal_generator.rpn_head``, ``roi_heads.box_head`` and
-    ``roi_heads.box_predictor``."""
+    """Parameter container: ``backbone`` (FPN over ResNet, or ViTDet's
+    ``net`` + ``simfp_*``), ``proposal_generator.rpn_head``,
+    ``roi_heads.box_head`` and ``roi_heads.box_predictor``.
 
-    def __init__(self, num_classes, num_cell_anchors, depth=50,
+    ``backbone_name`` is MODEL.BACKBONE.NAME; a ViTDet backbone is built
+    for the canvas's stride-16 ``grid`` (its global blocks' rel-pos tables
+    have the grid's size)."""
+
+    def __init__(self, num_classes, num_cell_anchors,
+                 backbone_name="build_resnet_fpn_backbone", depth=50,
                  stride_in_1x1=True, fpn_out_channels=256, rpn_conv_dims=(-1,),
-                 num_fc=2, fc_dim=1024, num_conv=0, box_head_norm="",
-                 pooler_resolution=7, compute_dtype=torch.float32,
-                 freeze_at=0):
+                 num_fc=2, fc_dim=1024, num_conv=0, conv_dim=256,
+                 box_head_norm="", pooler_resolution=7,
+                 compute_dtype=torch.float32, freeze_at=0, grid=None,
+                 use_act_checkpoint=True):
         super().__init__()
         dt = compute_dtype
-        self.backbone = FPN(ResNet(depth, stride_in_1x1, dt, freeze_at),
-                            out_channels=fpn_out_channels, compute_dtype=dt)
+        if backbone_name in VIT_BACKBONES:
+            self.backbone = ViTDetBackbone(
+                backbone_name.split("_")[2], grid, fpn_out_channels,
+                use_act_checkpoint, dt)
+        else:
+            self.backbone = FPN(ResNet(depth, stride_in_1x1, dt, freeze_at),
+                                out_channels=fpn_out_channels,
+                                compute_dtype=dt)
         self.proposal_generator = nn.ModuleDict({"rpn_head": StandardRPNHead(
             fpn_out_channels, num_cell_anchors, rpn_conv_dims, dt)})
         self.roi_heads = nn.ModuleDict({
             "box_head": FastRCNNConvFCHead(
                 fpn_out_channels, pooler_resolution, num_fc, fc_dim, num_conv,
-                box_head_norm, dt),
+                box_head_norm, dt, conv_dim),
             "box_predictor": FastRCNNOutputLayers(
                 fc_dim if num_fc else
                 fpn_out_channels * pooler_resolution ** 2, num_classes, dt),
@@ -68,7 +85,7 @@ class RCNN(nn.Module):
 
 def _check_supported(cfg):
     name = cfg.MODEL.BACKBONE.NAME
-    if name != "build_resnet_fpn_backbone":
+    if name not in ("build_resnet_fpn_backbone",) + VIT_BACKBONES:
         raise NotImplementedError(f"MODEL.BACKBONE.NAME={name} {_NOT_PORTED}")
     d = cfg.MODEL.RESNETS.RES5_DILATION
     if d != 1:
@@ -120,15 +137,18 @@ class RCNNDetector:
         self.module = RCNN(
             num_classes=self.num_classes,
             num_cell_anchors=anchor_gen.num_cell_anchors,
+            backbone_name=cfg.MODEL.BACKBONE.NAME,
             depth=cfg.MODEL.RESNETS.DEPTH,
             stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
             fpn_out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
             rpn_conv_dims=tuple(cfg.MODEL.RPN.CONV_DIMS),
             num_fc=box.NUM_FC, fc_dim=box.FC_DIM, num_conv=box.NUM_CONV,
-            box_head_norm=box.NORM,
+            conv_dim=box.CONV_DIM, box_head_norm=box.NORM,
             pooler_resolution=box.POOLER_RESOLUTION,
             compute_dtype=self.dtype,
             freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+            grid=(self.canvas[0] // 16, self.canvas[1] // 16),
+            use_act_checkpoint=cfg.VIT.USE_ACT_CHECKPOINT,
         ).eval()
         self.init_variables(seed=0)
 
@@ -174,9 +194,12 @@ class RCNNDetector:
 
     # -------------------------------------------------------------- stages
     # ``module``: the RCNN to run, the detector's own by default
-    def backbone(self, images, module=None):
-        """Normalized NHWC images -> [p2, ..., p6], each NHWC."""
-        feats = (module or self.module).backbone(images.permute(0, 3, 1, 2))
+    def backbone(self, images, module=None, drop=None):
+        """Normalized NHWC images -> [p2, ..., p6], each NHWC. ``drop``: the
+        ViT's drop-path keep masks [2, depth, B] (training only)."""
+        net = (module or self.module).backbone
+        x = images.permute(0, 3, 1, 2)
+        feats = net(x) if drop is None else net(x, drop)
         return [f.permute(0, 2, 3, 1) for f in feats]
 
     def rpn_head(self, features, module=None):
@@ -219,12 +242,14 @@ class RCNNDetector:
     def forward_train(self, module, images, image_sizes, gt, draws):
         """Full training forward of ``module`` on images [B, H, W, 3] with
         ground truth ``gt`` (``Instances`` padded to MAX_GT). ``draws``:
-        ``{"rpn": ..., "roi": ...}`` from ``engine.train_step.draw_step``.
+        ``{"rpn": ..., "roi": ...}`` (and ``"drop"`` for a ViT backbone)
+        from ``engine.train_step.draw_step``.
         Returns (losses, aux); aux carries the RPN head outputs
         (concatenated over levels, float32), the sampled ROI set and the box
         predictor's outputs on it, for the distill losses."""
         check_trainable(self.cfg)
-        feats = self.backbone(self.preprocess(images), module)
+        feats = self.backbone(self.preprocess(images), module,
+                              draws.get("drop"))
         logits, deltas, logits_cat, deltas_cat = self._rpn_outputs(
             feats, module)
         losses = rpn_losses(self.anchors_cat, logits_cat, deltas_cat,

@@ -16,30 +16,45 @@ from ..ops.losses import smooth_l1, softmax_cross_entropy
 from ..ops.matcher import match, sample_fixed_indices, subsample_labels
 from ..ops.nms import batched_nms_keep_mask
 from ..ops.roi_align import roi_align_batched
-from .layers import Linear
+from .layers import Conv2d, ConvNorm, Linear
 
 
 class FastRCNNConvFCHead(nn.Module):
-    """Pooled features [N, r, r, C] (NHWC) -> fc* with ReLU. The input is
-    flattened in (h, w, c) order, as in the JAX package; a detectron2
+    """Pooled features [N, r, r, C] (NHWC) -> conv* -> fc* with ReLU
+    (``aldi_tpu/models/roi_heads.py:27-54``). ``num_conv`` 3x3 convs of
+    ``conv_dim``, bias-free and followed by a channel LayerNorm (eps 1e-6)
+    when ``norm == "LN"`` (the ViTDet configs), each then ReLU; the result is
+    flattened in (h, w, c) order, as in the JAX package (a detectron2
     checkpoint's (c, h, w) ``fc1`` needs the permutation of
-    ``aldi_tpu/engine/checkpoint_convert.py:380-392``."""
+    ``aldi_tpu/engine/checkpoint_convert.py:380-392``)."""
 
     def __init__(self, in_channels, resolution, num_fc=2, fc_dim=1024,
-                 num_conv=0, norm="", compute_dtype=torch.float32):
+                 num_conv=0, norm="", compute_dtype=torch.float32,
+                 conv_dim=256):
         super().__init__()
-        if num_conv or norm:
+        if norm not in ("", "LN"):
             raise NotImplementedError(
-                "conv box heads (MODEL.ROI_BOX_HEAD.NUM_CONV/NORM, ViTDet "
-                "configs) are not ported yet: ROADMAP.md, ViTDet slice")
-        self.num_fc = num_fc
+                f"MODEL.ROI_BOX_HEAD.NORM={norm!r}: the box head takes '' or "
+                "'LN'")
+        self.num_conv, self.num_fc = num_conv, num_fc
+        dt = compute_dtype
+        for i in range(num_conv):
+            self.add_module(f"conv{i + 1}", ConvNorm(
+                in_channels, conv_dim, 3, compute_dtype=dt) if norm else
+                Conv2d(in_channels, conv_dim, 3, padding=1, compute_dtype=dt))
+            in_channels = conv_dim
         dim = in_channels * resolution * resolution
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", Linear(dim, fc_dim,
-                                                 compute_dtype=compute_dtype))
+                                                 compute_dtype=dt))
             dim = fc_dim
 
     def forward(self, x):
+        if self.num_conv:
+            x = x.permute(0, 3, 1, 2)
+            for i in range(self.num_conv):
+                x = F.relu(getattr(self, f"conv{i + 1}")(x))
+            x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[0], -1)
         for i in range(self.num_fc):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))

@@ -23,25 +23,34 @@ from .layers import Conv2d
 
 
 class StandardRPNHead(nn.Module):
-    """3x3 conv + 1x1 objectness / 1x1 anchor-delta heads, shared across
-    levels. Takes NCHW levels; returns per level ([B, HWA], [B, HWA, 4])."""
+    """3x3 conv stack + 1x1 objectness / 1x1 anchor-delta heads, shared
+    across levels (``aldi_tpu/models/rpn.py:27-61``). ``conv_dims`` is
+    MODEL.RPN.CONV_DIMS (-1 = the input channels): one conv is named
+    ``conv``, several ``conv0``, ``conv1``, ..., each followed by ReLU (the
+    ViTDet configs use two). Takes NCHW levels; returns per level
+    ([B, HWA], [B, HWA, 4])."""
 
     def __init__(self, in_channels, num_anchors, conv_dims=(-1,),
                  compute_dtype=torch.float32):
         super().__init__()
-        if tuple(conv_dims) != (-1,):
-            raise NotImplementedError(
-                "MODEL.RPN.CONV_DIMS other than [-1] (ViTDet configs) is not "
-                "ported yet: ROADMAP.md, ViTDet slice")
         kw = dict(compute_dtype=compute_dtype, init_std=0.01)
-        self.conv = Conv2d(in_channels, in_channels, 3, padding=1, **kw)
-        self.objectness_logits = Conv2d(in_channels, num_anchors, 1, **kw)
-        self.anchor_deltas = Conv2d(in_channels, num_anchors * 4, 1, **kw)
+        self.conv_names = []
+        dim = in_channels
+        for i, d in enumerate(conv_dims):
+            name = "conv" if len(conv_dims) == 1 else f"conv{i}"
+            out = in_channels if d == -1 else d
+            self.add_module(name, Conv2d(dim, out, 3, padding=1, **kw))
+            self.conv_names.append(name)
+            dim = out
+        self.objectness_logits = Conv2d(dim, num_anchors, 1, **kw)
+        self.anchor_deltas = Conv2d(dim, num_anchors * 4, 1, **kw)
 
     def forward(self, features: List[torch.Tensor]):
         logits, deltas = [], []
         for f in features:
-            t = F.relu(self.conv(f))
+            t = f
+            for name in self.conv_names:
+                t = F.relu(getattr(self, name)(t))
             b = f.shape[0]
             # channel a*4+k of anchor_deltas is coordinate k of anchor a
             logits.append(self.objectness_logits(t).permute(0, 2, 3, 1)

@@ -1,0 +1,131 @@
+"""Attention with the decomposed relative-position bias of the ViTDet global
+blocks: ``softmax(q k^T * scale + Bh[q, y_k] + Bw[q, x_k]) v``.
+
+Port of ``aldi_tpu/ops/pallas_flash_attn.py``. q/k/v are [G, N, D] with
+G = batch * heads and the keys in raster order (key k at grid cell
+(y, x) = (k // w_grid, k % w_grid)); bh is [G, N, h_grid], bw
+[G, N, w_grid], both float32. Two versions of the forward and of the
+backward:
+
+- ``flash_attn_plain`` and ``flash_attn_plain_backward``: plain PyTorch,
+  the whole [N, N] logits of a few heads at a time, with the Pallas
+  kernels' arithmetic (``:101-148`` and ``:170-214``): float32 logits from
+  the input-dtype q and k, the probabilities rounded to the input dtype
+  before P.V, and every product of the backward in float32. The CPU path,
+  and the reference the CUDA kernels are held against.
+- the CUDA kernels K3a/K3b behind ``flash_attn_kernel.flash_attn_fwd`` and
+  ``flash_attn_kernel.flash_attn_bwd``.
+
+``FlashAttentionRelPos`` pairs each forward with its backward, as the JAX
+package's ``custom_vjp`` does; the backward is never autograd through the
+plain forward (that would accumulate bfloat16 products in bfloat16). The
+Pallas kernel's tilings (``supported_shape``) do not apply: the CUDA
+kernels mask their ragged tiles, so any N and grid are taken.
+"""
+
+import torch
+
+from .flash_attn_kernel import flash_attn_bwd, flash_attn_fwd
+
+# [G, N, N] float32 elements one plain call holds at once (1 GiB)
+_PLAIN_CHUNK = 1 << 28
+
+
+def _chunks(g, n):
+    step = max(1, _PLAIN_CHUNK // max(n * n, 1))
+    return [slice(s, min(s + step, g)) for s in range(0, g, step)]
+
+
+def _logits(q, k, bh, bw, scale, w_grid):
+    """float32 [g, N, N]: (q.k * scale + Bh[q, y_k]) + Bw[q, x_k]."""
+    n = q.shape[1]
+    keys = torch.arange(n, device=q.device)
+    y, x = keys // w_grid, keys % w_grid
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    return (s + bh.float()[:, :, y]) + bw.float()[:, :, x]
+
+
+def flash_attn_plain(q, k, v, bh, bw, scale, h_grid, w_grid):
+    """Plain forward. Returns (out [G, N, D] in q's dtype, lse [G, N]
+    float32)."""
+    g, n, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((g, n), dtype=torch.float32, device=q.device)
+    for sl in _chunks(g, n):
+        logits = _logits(q[sl], k[sl], bh[sl], bw[sl], scale, w_grid)
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m)
+        del logits
+        den = p.sum(-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), v[sl].float())
+        out[sl] = (o / den).to(q.dtype)
+        lse[sl] = (m + torch.log(den)).squeeze(-1)
+    return out, lse
+
+
+def attn_delta(out, dout):
+    """delta = rowsum(dout * out) in float32, [G, N]."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def flash_attn_plain_backward(q, k, v, bh, bw, lse, delta, dout, scale,
+                              h_grid, w_grid):
+    """Plain backward of ``flash_attn_plain`` for the cotangent dout, from
+    its lse and ``attn_delta(out, dout)``: P from the LSE, dS = P (dO V^T -
+    delta), dQ = dS K scale, dK = dS^T Q scale, dV = P^T dO, dBh = sum_x dS,
+    dBw = sum_y dS, all in float32. Returns (dq, dk, dv) in the inputs'
+    dtype and (dbh, dbw) in float32."""
+    g, n, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dbh = torch.empty((g, n, h_grid), dtype=torch.float32, device=q.device)
+    dbw = torch.empty((g, n, w_grid), dtype=torch.float32, device=q.device)
+    for sl in _chunks(g, n):
+        qf, kf, vf, dof = (t[sl].float() for t in (q, k, v, dout))
+        p = torch.exp(_logits(q[sl], k[sl], bh[sl], bw[sl], scale, w_grid)
+                      - lse[sl, :, None])
+        dp = torch.matmul(dof, vf.transpose(1, 2))
+        ds = p * (dp - delta[sl, :, None])
+        del dp
+        dq[sl] = (torch.matmul(ds, kf) * scale).to(q.dtype)
+        dk[sl] = (torch.matmul(ds.transpose(1, 2), qf) * scale).to(k.dtype)
+        dv[sl] = torch.matmul(p.transpose(1, 2), dof).to(v.dtype)
+        del p
+        grid = ds.reshape(ds.shape[0], n, h_grid, w_grid)
+        dbh[sl] = grid.sum(-1)
+        dbw[sl] = grid.sum(-2)
+    return dq, dk, dv, dbh, dbw
+
+
+class FlashAttentionRelPos(torch.autograd.Function):
+    """The plain versions for CPU tensors, the kernels for CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bh, bw, scale, h_grid, w_grid):
+        if q.device.type == "cpu":
+            out, lse = flash_attn_plain(q, k, v, bh, bw, scale, h_grid,
+                                        w_grid)
+        else:
+            out, lse = flash_attn_fwd(q, k, v, bh, bw, scale, h_grid, w_grid)
+        ctx.save_for_backward(q, k, v, bh, bw, out, lse)
+        ctx.meta = (scale, h_grid, w_grid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bh, bw, out, lse = ctx.saved_tensors
+        scale, h_grid, w_grid = ctx.meta
+        dout = dout.contiguous()
+        delta = attn_delta(out, dout)
+        fn = (flash_attn_plain_backward if q.device.type == "cpu"
+              else flash_attn_bwd)
+        grads = fn(q, k, v, bh, bw, lse, delta, dout, scale, h_grid, w_grid)
+        return (*grads, None, None, None)
+
+
+def flash_attention_relpos(q, k, v, bh, bw, scale, h_grid, w_grid):
+    """Exact softmax(q k^T * scale + decomposed rel-pos bias) v, [G, N, D],
+    differentiable in q, k, v, bh and bw. The bias is not scaled."""
+    return FlashAttentionRelPos.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        bh.float().contiguous(), bw.float().contiguous(), float(scale),
+        int(h_grid), int(w_grid))

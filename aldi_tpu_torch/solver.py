@@ -1,15 +1,25 @@
 """Optimizer and learning-rate schedules.
 
-Port of the SGD half of ``aldi_tpu/solver.py`` (ADAMW waits for the ViTDet
-slice). The JAX package's optimizer is
-``masked(chain(clip?, add_decayed_weights(wd), sgd(lr, momentum,
-nesterov)))``: ``torch.optim.SGD`` with ``weight_decay`` and ``momentum``
-makes the same update (decay added to the gradient, then the momentum
-trace, then -lr times it), and its first momentum buffer equals optax's
-trace from zeros. The mask is the set of parameters with
-``requires_grad`` (``ResNet(freeze_at=...)`` clears it on the frozen
-stages). ``set_lr`` takes the schedule at the step count before the
-update, as optax's ``scale_by_schedule`` does.
+Port of ``aldi_tpu/solver.py`` for SGD and ADAMW.
+
+- SGD: the JAX package's ``masked(chain(clip?, add_decayed_weights(wd),
+  sgd(lr, momentum, nesterov)))``. ``torch.optim.SGD`` with
+  ``weight_decay`` and ``momentum`` makes the same update (decay added to
+  the gradient, then the momentum trace, then -lr times it), and its first
+  momentum buffer equals optax's trace from zeros.
+- ADAMW (``:156-183``): ``optax.adamw(lr, b1=0.9, b2=0.999, eps=1e-8,
+  weight_decay, mask=not pos_embed)``, for ViTDet-B followed by the layer
+  decay ``0.7^(13 - layer_id)`` (patch and position embeddings layer 0,
+  block i layer i + 1, everything outside the trunk multiplier 1,
+  ``:43-61``). optax's update is ``-lr * mult * (adam + wd * p)``;
+  ``torch.optim.AdamW`` with one parameter group per (multiplier, decay)
+  pair, ``lr = schedule * mult`` and ``weight_decay`` wd or 0, makes the
+  same one (``p * (1 - lr wd)``, then ``-lr * adam``).
+
+The mask is the set of parameters with ``requires_grad``
+(``ResNet(freeze_at=...)`` clears it on the frozen stages). ``set_lr``
+takes the schedule at the step count before the update, as optax's
+``scale_by_schedule`` does, and keeps each group's multiplier.
 """
 
 import math
@@ -60,25 +70,54 @@ def build_lr_schedule(cfg) -> Callable[[int], float]:
     raise ValueError(f"Unknown LR scheduler {name}")
 
 
+def vit_lr_decay_multiplier(name: str, num_layers: int = 12,
+                            rate: float = 0.7) -> float:
+    """``_vit_lr_decay_multipliers`` for one parameter of the port:
+    rate^(num_layers + 1 - layer_id) inside the ViT trunk
+    (``backbone.net.*``: embeddings layer 0, ``blocks.{i}`` layer i + 1),
+    1.0 elsewhere (the feature pyramid included, as in the JAX package)."""
+    if not name.startswith("backbone.net."):
+        return 1.0
+    parts = name.split(".")
+    layer_id = int(parts[3]) + 1 if parts[2] == "blocks" else 0
+    return rate ** (num_layers + 1 - layer_id)
+
+
 def build_optimizer(cfg, module: torch.nn.Module):
-    """cfg + model -> ``torch.optim.SGD`` over the trainable parameters
-    (``requires_grad``), with the learning rate of step 0."""
+    """cfg + model -> ``torch.optim.SGD`` or ``AdamW`` over the trainable
+    parameters (``requires_grad``), with the learning rate of step 0. Each
+    parameter group carries its learning-rate multiplier as ``lr_mult``."""
     name = (cfg.SOLVER.OPTIMIZER or "SGD").upper()
-    if name == "ADAMW":
-        raise NotImplementedError(
-            "SOLVER.OPTIMIZER=ADAMW is not ported yet: ROADMAP.md, ViTDet "
-            "slice")
-    if name != "SGD":
+    lr0 = build_lr_schedule(cfg)(0)
+    named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+    if name == "SGD":
+        return torch.optim.SGD(
+            [{"params": [p for _, p in named], "lr_mult": 1.0}], lr=lr0,
+            momentum=cfg.SOLVER.MOMENTUM, weight_decay=cfg.SOLVER.WEIGHT_DECAY,
+            nesterov=cfg.SOLVER.NESTEROV)
+    if name != "ADAMW":
         raise ValueError(f"Unsupported optimizer {name}")
-    params = [p for p in module.parameters() if p.requires_grad]
-    return torch.optim.SGD(
-        params, lr=build_lr_schedule(cfg)(0), momentum=cfg.SOLVER.MOMENTUM,
-        weight_decay=cfg.SOLVER.WEIGHT_DECAY, nesterov=cfg.SOLVER.NESTEROV)
+    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
+        raise NotImplementedError(
+            "ADAMW's DETR multipliers are not ported yet: ROADMAP.md, "
+            "Deformable DETR slice")
+    decay = cfg.MODEL.BACKBONE.NAME == "build_vitdet_b_backbone"
+    wd = cfg.SOLVER.WEIGHT_DECAY
+    groups = {}
+    for n, p in named:
+        mult = vit_lr_decay_multiplier(n) if decay else 1.0
+        key = (mult, 0.0 if n.split(".")[-1] == "pos_embed" else wd)
+        groups.setdefault(key, []).append(p)
+    return torch.optim.AdamW(
+        [{"params": ps, "lr": lr0 * mult, "lr_mult": mult,
+          "weight_decay": w} for (mult, w), ps in groups.items()],
+        lr=lr0, betas=(0.9, 0.999), eps=1e-8)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The schedule's learning rate times each group's ``lr_mult``."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group["lr_mult"]
 
 
 @torch.no_grad()

@@ -4,7 +4,8 @@ This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch: there, skip the JAX-loading conftest with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py``.
 
-Tolerances: the ROIAlign kernels against their plain versions, float32
+Tolerances: the rel-pos attention kernels K3a/K3b as ``chip_smoke.check_attn``
+states them; the ROIAlign kernels against their plain versions, float32
 1e-5 (the same arithmetic, summed in another order; the backward's atomics
 add in another order on every run) and bfloat16 one bf16 ulp of the value
 (2^-7 relative); the matcher kernels exactly (the same IoU rounding); the
@@ -18,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from aldi_tpu_torch.ops import _build
 from aldi_tpu_torch.ops.anchors import AnchorGenerator
+from aldi_tpu_torch.ops.flash_attn import flash_attention_relpos
+from aldi_tpu_torch.ops.flash_attn_kernel import flash_attn_bwd, flash_attn_fwd
 from aldi_tpu_torch.ops.match_kernel import (
     low_quality_mask, low_quality_mask_plain, match_boxes, match_boxes_plain,
     match_iou, match_iou_plain)
@@ -26,7 +30,8 @@ from aldi_tpu_torch.ops.roi_align import (box_levels, roi_align_batched,
                                           roi_align_plain,
                                           roi_align_plain_backward)
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
-from chip_smoke import tiny_reference_check, tiny_train_reference_check
+from chip_smoke import (VIT_ALDI, check_attn, tiny_reference_check,
+                        tiny_train_reference_check, tiny_vit)
 
 STRIDES = [4, 8, 16, 32]
 pytestmark = pytest.mark.cuda
@@ -191,3 +196,75 @@ def test_tiny_train_step_on_card_matches_cpu(card):
     """chip_smoke's training reference check; fails (SystemExit) on
     disagreement."""
     tiny_train_reference_check()
+
+
+@pytest.mark.parametrize("grid,g", [((50, 84), 2), ((64, 128), 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_kernels_match_plain(card, dtype, grid, g):
+    """K3a and K3b against ``flash_attn_plain``/``flash_attn_plain_backward``
+    on a ragged grid and at ViTDet-B's global blocks (N = 8192); fails
+    (SystemExit) on disagreement."""
+    before = (flash_attn_fwd.launches, flash_attn_bwd.launches)
+    check_attn("card test", dtype, *grid, g, seed=31)
+    assert (flash_attn_fwd.launches, flash_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_flash_attention_function_goes_to_the_kernels(card):
+    """On CUDA tensors ``flash_attention_relpos`` and its gradient launch
+    K3a and K3b once each."""
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        card).requires_grad_(True) for s in ((2, 35, 64), (2, 35, 64),
+                                             (2, 35, 64), (2, 35, 7),
+                                             (2, 35, 5))]
+    before = (flash_attn_fwd.launches, flash_attn_bwd.launches)
+    flash_attention_relpos(*args, 0.125, 7, 5).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attn_fwd.launches, flash_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(a.grad is not None and torch.isfinite(a.grad).all()
+               for a in args)
+
+
+def test_cuda_tensors_without_a_kernel_raise(card, monkeypatch):
+    """No fallback to the plain version: a library that cannot be built or
+    loaded, or a head dim the kernel does not take, raises."""
+    q = torch.zeros((1, 64, 64), device=card)
+    b = torch.zeros((1, 64, 8), device=card)
+
+    def no_library(name):
+        raise RuntimeError(f"nvcc not found: {name} cannot be built")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        flash_attention_relpos(q, q, q, b, b, 0.125, 8, 8)
+    monkeypatch.undo()
+    q32 = torch.zeros((1, 64, 32), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_relpos(q32, q32, q32, b, b, 0.125, 8, 8)
+
+
+def test_vitdet_detector_defaults_to_cuda(card):
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = get_cfg()
+    cfg.merge_from_file(VIT_ALDI)
+    cfg.TPU.CANVAS = (128, 128)
+    with tiny_vit():
+        det = build_detector(cfg)
+    assert det.device.type == "cuda"
+    assert next(det.module.parameters()).device.type == "cuda"
+
+
+def test_tiny_vitdet_on_card_matches_cpu(card):
+    """chip_smoke's reference check for the tiny ViTDet (64-wide heads:
+    the attention kernels run); fails (SystemExit) on disagreement."""
+    with tiny_vit():
+        tiny_reference_check(VIT_ALDI)
+
+
+def test_tiny_vitdet_train_step_on_card_matches_cpu(card):
+    with tiny_vit():
+        tiny_train_reference_check(VIT_ALDI)

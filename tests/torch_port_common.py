@@ -3,8 +3,14 @@ for both packages, seeded numpy weights in the JAX package's variable tree,
 and their conversion into the port's state dict.
 
 The tiny config is the one of ``tests/test_rcnn_forward.py``: ResNet depth
-26 (one block per stage), canvas 128, 3 classes, RPN top-k 64/32.
+26 (one block per stage), canvas 128, 3 classes, RPN top-k 64/32. The tiny
+ViTDet is the one of ``tests/test_backbones.py:22-42``: the ViTDet head
+config (LN conv box head, two RPN convs) over a ViT of embed 64, depth 3,
+2 heads, global block 1, patched into both packages' ``VIT_CONFIGS["b"]``
+by ``tiny_vit``.
 """
+
+import contextlib
 
 import jax
 import numpy as np
@@ -50,9 +56,12 @@ def seeded_variables(det, seed=0):
         names = [getattr(p, "key", str(p)) for p in path]
         leaf = names[-1]
         if leaf == "kernel":
-            std = gains.get(names[-2], 1.0) / np.sqrt(np.prod(s.shape[:-1]))
+            # fan in: all but the last axis, but the head-major qkv kernel
+            # [C, 3, heads, head_dim] contracts its first axis only
+            fan = s.shape[0] if names[-2] == "qkv" else np.prod(s.shape[:-1])
+            std = gains.get(names[-2], 1.0) / np.sqrt(fan)
             return (rng.standard_normal(s.shape) * std).astype(np.float32)
-        if leaf in ("weight", "running_var"):
+        if leaf in ("weight", "running_var", "scale"):
             return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
         return (rng.standard_normal(s.shape) * 0.05).astype(np.float32)
 
@@ -83,3 +92,36 @@ def tiny_images(b=2, canvas=(128, 128), seed=0):
 def max_err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float64)
                                - np.asarray(b, np.float64)), initial=0.0))
+
+
+VIT_TINY = dict(embed_dim=64, depth=3, num_heads=2, drop_path_rate=0.1,
+                global_blocks=(1,))
+
+
+@contextlib.contextmanager
+def tiny_vit(**overrides):
+    """Both packages' ``VIT_CONFIGS["b"]`` set to the tiny ViT (with
+    ``overrides``) for the duration; the JAX package reads it whenever a
+    detector's module is applied or traced."""
+    from aldi_tpu.models import vit as jax_vit
+    from aldi_tpu_torch.models import vit as port_vit
+
+    saved = jax_vit.VIT_CONFIGS["b"], port_vit.VIT_CONFIGS["b"]
+    jax_vit.VIT_CONFIGS["b"] = port_vit.VIT_CONFIGS["b"] = dict(
+        VIT_TINY, **overrides)
+    try:
+        yield
+    finally:
+        jax_vit.VIT_CONFIGS["b"], port_vit.VIT_CONFIGS["b"] = saved
+
+
+def vitdet_head_config(cfg):
+    """The ViTDet-B head config of ``configs/Base-RCNN-VitDetB.yaml`` (with
+    two box-head convs instead of four) on a tiny cfg."""
+    cfg.MODEL.BACKBONE.NAME = "build_vitdet_b_backbone"
+    cfg.MODEL.ROI_BOX_HEAD.NORM = "LN"
+    cfg.MODEL.ROI_BOX_HEAD.NUM_CONV = 2
+    cfg.MODEL.ROI_BOX_HEAD.NUM_FC = 1
+    cfg.MODEL.RPN.CONV_DIMS = [-1, -1]
+    return cfg
+

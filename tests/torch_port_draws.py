@@ -8,9 +8,11 @@ draws, as torch tensors, in the layout the port's function takes:
 ``aldi_tpu/models/rpn.py:179-201`` (``label_anchors_sampled``),
 ``aldi_tpu/models/roi_heads.py:98-123`` (``sample_proposals``),
 ``aldi_tpu/models/rcnn.py:410`` (``forward_train``),
-``aldi_tpu/data/strong_aug.py:43-157`` (``strong_augment``) and
-``aldi_tpu/engine/train_step.py:137-194,331`` (the step's keys). It uses JAX
-only and changes nothing in ``aldi_tpu``.
+``aldi_tpu/data/strong_aug.py:43-157`` (``strong_augment``),
+``aldi_tpu/engine/train_step.py:137-194,331`` (the step's keys) and
+``aldi_tpu/models/vit.py:197-203`` (drop path). It uses JAX only and
+changes nothing in ``aldi_tpu``: the drop-path masks, which flax derives
+from the module path, are captured from a run of the JAX backbone.
 """
 
 import jax
@@ -72,16 +74,57 @@ def sample_proposals_draws(key, batch, n):
     return _stack(out)
 
 
-def forward_train_draws(rng, cfg, batch, n_anchors):
+def vit_drop_masks(jdet, variables, k_drop, batch):
+    """The keep masks [2, depth, batch] (bool) that the JAX detector's ViT
+    draws in ``backbone(variables, x, train=True, rng=k_drop)``: its
+    backbone runs un-jitted and without remat (flax derives the same keys
+    with it) on zero images, with ``jax.random.bernoulli`` recording each
+    mask in call order (per block with a non-zero rate: attention, then
+    MLP). Blocks of rate 0 keep everything."""
+    from aldi_tpu.models import vit
+    from aldi_tpu.models.rcnn import RCNN
+
+    module = jdet.module.clone(use_act_checkpoint=False)
+    cfg = vit.VIT_CONFIGS[jdet.cfg.MODEL.BACKBONE.NAME.split("_")[2]]
+    depth, rate = cfg["depth"], cfg["drop_path_rate"]
+    recorded = []
+    real = jax.random.bernoulli
+
+    def bernoulli(key, p, shape):
+        mask = real(key, p, shape)
+        recorded.append(np.asarray(mask).reshape(-1))
+        return mask
+
+    x = jnp.zeros((batch, *jdet.canvas, 3), jdet.dtype)
+    jax.random.bernoulli = bernoulli
+    try:
+        module.apply(variables, x, True, method=RCNN.backbone_fwd,
+                     rngs={"dropout": k_drop})
+    finally:
+        jax.random.bernoulli = real
+    masks = np.ones((2, depth, batch), bool)
+    it = iter(recorded)
+    for i in range(depth):
+        if rate * i / max(depth - 1, 1) > 0:
+            masks[0, i], masks[1, i] = next(it), next(it)
+    assert next(it, None) is None
+    return _t(masks)
+
+
+def forward_train_draws(rng, cfg, batch, n_anchors, drop_masks=None):
     """``RCNNDetector.forward_train(..., rng)``: the RPN and ROI samplers'
-    draws."""
-    k_rpn, k_roi, _ = jax.random.split(rng, 3)
+    draws, and with ``drop_masks`` (``functools.partial(vit_drop_masks,
+    jdet, variables)``) the ViT's drop-path masks."""
+    k_rpn, k_roi, k_drop = jax.random.split(rng, 3)
     rpn = cfg.MODEL.RPN
     n_cand = rpn.POST_NMS_TOPK_TRAIN + cfg.TPU.MAX_GT
-    return {"rpn": label_anchors_draws(k_rpn, batch, n_anchors,
-                                       rpn.BATCH_SIZE_PER_IMAGE,
-                                       rpn.POSITIVE_FRACTION),
-            "roi": sample_proposals_draws(k_roi, batch, n_cand)}
+    out = {"rpn": label_anchors_draws(k_rpn, batch, n_anchors,
+                                      rpn.BATCH_SIZE_PER_IMAGE,
+                                      rpn.POSITIVE_FRACTION),
+           "roi": sample_proposals_draws(k_roi, batch, n_cand)}
+    if drop_masks is not None:
+        out["drop"] = drop_masks(k_drop, batch)
+    return out
 
 
 def strong_aug_draws(key, batch, canvas, include_erasing=True, mic=False,
@@ -122,10 +165,12 @@ def strong_aug_draws(key, batch, canvas, include_erasing=True, mic=False,
     return _stack(per)
 
 
-def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors):
+def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors,
+                     drop_masks=None):
     """Every draw of ``make_train_step(...)(state, batch, rng)`` for the
     labeled_strong + distill composition of the flagship, keyed as the
-    port's ``draw_step`` keys them."""
+    port's ``draw_step`` keys them (``drop_masks``: see
+    ``forward_train_draws``)."""
     keys = jax.random.split(rng, 10)
     aug = cfg.AUG
     rpn = cfg.MODEL.RPN
@@ -141,6 +186,8 @@ def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors):
             keys[2], n_unlabeled, canvas,
             aug.UNLABELED_INCLUDE_RANDOM_ERASING, aug.UNLABELED_MIC_AUG,
             aug.MIC_BLOCK_SIZE),
-        "strong": forward_train_draws(keys[4], cfg, n_labeled, n_anchors),
-        "distill": forward_train_draws(keys[6], cfg, n_unlabeled, n_anchors),
+        "strong": forward_train_draws(keys[4], cfg, n_labeled, n_anchors,
+                                      drop_masks),
+        "distill": forward_train_draws(keys[6], cfg, n_unlabeled, n_anchors,
+                                       drop_masks),
     }
