@@ -16,6 +16,9 @@ backward:
 - the CUDA kernels K3a/K3b behind ``flash_attn_kernel.flash_attn_fwd`` and
   ``flash_attn_kernel.flash_attn_bwd``.
 
+``flash_attn_split_backward`` emulates K3b's bfloat16 arithmetic (P and dS
+split into two bfloat16 terms before the tensor cores) for the tests.
+
 ``FlashAttentionRelPos`` pairs each forward with its backward, as the JAX
 package's ``custom_vjp`` does; the backward is never autograd through the
 plain forward (that would accumulate bfloat16 products in bfloat16). The
@@ -93,6 +96,49 @@ def flash_attn_plain_backward(q, k, v, bh, bw, lse, delta, dout, scale,
         grid = ds.reshape(ds.shape[0], n, h_grid, w_grid)
         dbh[sl] = grid.sum(-1)
         dbw[sl] = grid.sum(-2)
+    return dq, dk, dv, dbh, dbw
+
+
+def _split_bf16(x):
+    """float32 x as hi + lo, both bfloat16 values (held in float32):
+    hi = bf16(x), lo = bf16(x - hi); x - hi - lo is ~2^-16 of x."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def flash_attn_split_backward(q, k, v, bh, bw, lse, delta, dout, scale,
+                              h_grid, w_grid, single=False):
+    """Plain emulation of K3b's bfloat16 arithmetic, for the tests: P and dS
+    in float32 as in ``flash_attn_plain_backward``, but the products that
+    take them (dQ = dS K, dK = dS^T Q, dV = P^T dO) take them as K3b's
+    tensor cores do, split into hi + lo bfloat16 terms, each product summed
+    in float32 against the exact bfloat16 operand. ``single=True`` rounds P
+    and dS to bfloat16 once instead (what the split avoids). dBh and dBw are
+    summed as the dq kernel sums them: within each tile of 64 keys, then
+    tile after tile. Returns what ``flash_attn_plain_backward``
+    returns."""
+    g, n, d = q.shape
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    p = torch.exp(_logits(q, k, bh, bw, scale, w_grid) - lse[:, :, None])
+    ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - delta[:, :, None])
+
+    def product(a, b):
+        if single:
+            return torch.matmul(a.to(torch.bfloat16).float(), b)
+        hi, lo = _split_bf16(a)
+        return torch.matmul(hi, b) + torch.matmul(lo, b)
+
+    dq = (product(ds, kf) * scale).to(q.dtype)
+    dk = (product(ds.transpose(1, 2), qf) * scale).to(k.dtype)
+    dv = product(p.transpose(1, 2), dof).to(v.dtype)
+    keys = torch.arange(n, device=q.device)
+    dbh = torch.zeros((g, n, h_grid), dtype=torch.float32, device=q.device)
+    dbw = torch.zeros((g, n, w_grid), dtype=torch.float32, device=q.device)
+    for k0 in range(0, n, 64):
+        cols = keys[k0:k0 + 64]
+        part = ds[:, :, k0:k0 + 64]
+        dbh += torch.zeros_like(dbh).index_add_(2, cols // w_grid, part)
+        dbw += torch.zeros_like(dbw).index_add_(2, cols % w_grid, part)
     return dq, dk, dv, dbh, dbw
 
 

@@ -46,6 +46,18 @@ def _check(name, q, k, v, bh, bw, h_grid, w_grid):
                              "device")
 
 
+def _check_smem(kernel, dtype, h_grid, w_grid):
+    """Raise, naming the grid, when a block of the kernel would need more
+    shared memory than the card has (the bias rows of a wide grid)."""
+    query = getattr(kernel.lib(), f"aldi_{kernel.name}_smem")
+    query.argtypes = [ctypes.c_int] * 3
+    smem = query(h_grid, w_grid, _DTYPE_CODES[dtype])
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel.name}: a {h_grid}x{w_grid} grid needs "
+                         f"{smem} bytes of shared memory per block, more "
+                         f"than the card's {MAX_SMEM_BYTES}")
+
+
 class FlashAttnFwd(_build.Kernel):
     """K3a: out [G, N, 64] (q's dtype) and lse [G, N] (float32)."""
 
@@ -57,6 +69,7 @@ class FlashAttnFwd(_build.Kernel):
 
     def __call__(self, q, k, v, bh, bw, scale, h_grid, w_grid):
         _check(self.name, q, k, v, bh, bw, h_grid, w_grid)
+        _check_smem(self, q.dtype, h_grid, w_grid)
         g, n, _ = q.shape
         out = torch.empty_like(q)
         lse = torch.empty((g, n), dtype=torch.float32, device=q.device)
@@ -94,13 +107,7 @@ class FlashAttnBwd(_build.Kernel):
             if t.device != q.device or not t.is_contiguous():
                 raise ValueError(f"{self.name}: inputs must be contiguous on "
                                  "one device")
-        lib = self.lib()
-        lib.aldi_flash_attn_bwd_smem.argtypes = [ctypes.c_int] * 2
-        smem = lib.aldi_flash_attn_bwd_smem(h_grid, w_grid)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"{self.name}: a {h_grid}x{w_grid} grid needs "
-                             f"{smem} bytes of shared memory per block, more "
-                             f"than the card's {MAX_SMEM_BYTES}")
+        _check_smem(self, q.dtype, h_grid, w_grid)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         dbh = torch.empty((g, n, h_grid), dtype=torch.float32,
                           device=q.device)

@@ -21,7 +21,9 @@ failure exits non-zero:
    float32 and bfloat16; the rel-pos attention K3a/K3b on a tiny 8x8 and a
    ragged 50x84 grid and at ViTDet-B's global blocks (one image's 12
    heads, grid 64x128, N = 8192, head dim 64) in float32 and bfloat16,
-   with PyTorch's ``scaled_dot_product_attention`` timed beside them.
+   and in bfloat16 at one training-step launch (4 images' heads, G = 48),
+   with their achieved rate, their share of the bound and PyTorch's
+   ``scaled_dot_product_attention`` timed beside them.
 3. Serving phase, for the flagship detector (Faster R-CNN R50-FPN,
    ``configs/cityscapes/ALDI-Best-Cityscapes.yaml``) and for ViTDet-B
    (``configs/cityscapes/ALDI-Best-ViT-Cityscapes.yaml``), both with 8
@@ -513,8 +515,13 @@ def check_attn(name, dtype, h_grid, w_grid, g, seed, kernel_iters=0,
                 max_abs_err=err, ms=cuda_ms(fn, kernel_iters, warmup=1),
                 plain_ms=cuda_ms(plain, plain_iters, warmup=1),
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        n = h_grid * w_grid
+        ops = {flash_attn_fwd.name: 4 * n * n * 64 * g,
+               flash_attn_bwd.name: 10 * n * n * 64 * g}
         text = "; " + "; ".join(
-            f"{k} {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, sdpa "
+            f"{k} {v['ms']:.3f} ms ({ops[k] / v['ms'] / 1e9:.1f} TFLOP/s of "
+            f"the function's products, {v['bound_ms'] / v['ms']:.3f} of the "
+            f"bound), plain {v['plain_ms']:.3f} ms, sdpa "
             + ("n/a" if v["library_ms"] is None
                else f"{v['library_ms']:.3f}")
             + f" ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
@@ -1252,8 +1259,12 @@ def main():
     check_attn("ViTDet-B flagship shapes", torch.float32, *VIT_GRID,
                VIT_HEADS, seed=23, kernel_iters=2, plain_iters=1)
     numbers.update(check_attn("ViTDet-B flagship shapes", torch.bfloat16,
-                              *VIT_GRID, VIT_HEADS, seed=24, kernel_iters=3,
+                              *VIT_GRID, VIT_HEADS, seed=24, kernel_iters=10,
                               plain_iters=1, library=True))
+    # one launch of the training step: 4 images' heads (G = 48)
+    check_attn("ViTDet-B step launch", torch.bfloat16, *VIT_GRID,
+               4 * VIT_HEADS, seed=25, kernel_iters=5, plain_iters=1,
+               library=True)
     torch.cuda.empty_cache()
 
     # -- 3. serving phase: each detector through its entry points

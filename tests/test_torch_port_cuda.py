@@ -21,7 +21,8 @@ import torch
 
 from aldi_tpu_torch.ops import _build
 from aldi_tpu_torch.ops.anchors import AnchorGenerator
-from aldi_tpu_torch.ops.flash_attn import flash_attention_relpos
+from aldi_tpu_torch.ops.flash_attn import (attn_delta, flash_attention_relpos,
+                                           flash_attn_plain)
 from aldi_tpu_torch.ops.flash_attn_kernel import flash_attn_bwd, flash_attn_fwd
 from aldi_tpu_torch.ops.match_kernel import (
     low_quality_mask, low_quality_mask_plain, match_boxes, match_boxes_plain,
@@ -30,7 +31,8 @@ from aldi_tpu_torch.ops.roi_align import (box_levels, roi_align_batched,
                                           roi_align_plain,
                                           roi_align_plain_backward)
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
-from chip_smoke import (VIT_ALDI, check_attn, tiny_reference_check,
+from chip_smoke import (VIT_ALDI, attn_inputs, check_attn,
+                        tiny_reference_check,
                         tiny_train_reference_check, tiny_vit)
 
 STRIDES = [4, 8, 16, 32]
@@ -198,16 +200,33 @@ def test_tiny_train_step_on_card_matches_cpu(card):
     tiny_train_reference_check()
 
 
-@pytest.mark.parametrize("grid,g", [((50, 84), 2), ((64, 128), 12)])
+@pytest.mark.parametrize("grid,g", [((50, 84), 2), ((64, 128), 12),
+                                    ((64, 64), 4), ((7, 5), 3),
+                                    ((64, 128), 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attn_kernels_match_plain(card, dtype, grid, g):
     """K3a and K3b against ``flash_attn_plain``/``flash_attn_plain_backward``
-    on a ragged grid and at ViTDet-B's global blocks (N = 8192); fails
+    on ragged grids, at a 1024x1024 canvas's grid, at ViTDet-B's global
+    blocks (N = 8192) and at one training-step launch (G = 48); fails
     (SystemExit) on disagreement."""
     before = (flash_attn_fwd.launches, flash_attn_bwd.launches)
     check_attn("card test", dtype, *grid, g, seed=31)
     assert (flash_attn_fwd.launches, flash_attn_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_bwd_is_deterministic(card, dtype):
+    """K3b has no atomics: two launches on the same inputs are bitwise
+    equal."""
+    q, k, v, bh, bw, dout = attn_inputs(dtype, 41, 12, 64, 128)
+    out, lse = flash_attn_plain(q, k, v, bh, bw, 0.125, 64, 128)
+    args = (q, k, v, bh, bw, lse, attn_delta(out, dout), dout, 0.125, 64,
+            128)
+    first = flash_attn_bwd(*args)
+    second = flash_attn_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_attention_function_goes_to_the_kernels(card):
