@@ -2,6 +2,17 @@
 (``csrc/roi_align_fwd.cu``) and the backward with respect to the features
 (``csrc/roi_align_bwd.cu``).
 
+The forward gives each box a warp whose lanes gather 16-byte channel
+vectors of the corner rows, all 16 corner loads of a bin in flight before
+its sums; the backward owns the gradient tile by tile: a binning pass lists
+each level's boxes and flags the 8x8 pixel tiles they can touch, then each
+tile's block keeps the boxes that meet it, sums their terms in float32 in
+shared memory in a fixed order (no atomics, the same result on every run)
+and writes the tile once in the features' dtype (an unflagged tile writes
+zeros). Both are bound by the
+bytes they move: the forward by the feature rows it reads and the output
+it writes, the backward by the dense per-level gradient it writes.
+
 The forward replaces the Pallas forward ``aldi_tpu/ops/pallas_roi_align.py:183``
 (``_roi_align_pallas_flat``); the backward replaces the JAX package's XLA
 scatter-add backward ``aldi_tpu/ops/roi_align.py:342`` (``_fused_bwd``). The
@@ -25,10 +36,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 class _RoiAlignKernel(_build.Kernel):
     """Shared argument checks and launch of the forward and the backward,
-    whose C entry points take the same arguments."""
+    whose C entry points share their leading arguments."""
 
     argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+                + [ctypes.c_int] * 6)
 
     def _check(self, hws, dtype, boxes, levels, n_levels, strides):
         b, p = boxes.shape[:2]
@@ -49,7 +60,9 @@ class _RoiAlignKernel(_build.Kernel):
             raise ValueError("one stride per feature level")
 
     def _launch(self, ptrs, hws, strides, boxes, levels, c, output_size,
-                sampling_ratio, dtype, data):
+                sampling_ratio, dtype, *data):
+        """``data``: the entry point's arguments after the dtype, but for
+        the stream."""
         b, p = boxes.shape[:2]
         ptrs = np.asarray(ptrs, np.uint64)
         hw = np.asarray(hws, np.int32)
@@ -60,13 +73,14 @@ class _RoiAlignKernel(_build.Kernel):
             self.launch(ptrs.ctypes.data, hw.ctypes.data, scale.ctypes.data,
                         len(hws), boxes.data_ptr(), levels.data_ptr(), p,
                         b * p, c, output_size, sampling_ratio,
-                        _DTYPE_CODES[dtype], data, stream)
+                        _DTYPE_CODES[dtype], *data, stream)
 
 
 class RoiAlignFwd(_RoiAlignKernel):
     """K2 forward: multi-level ROIAlign of NHWC levels."""
 
     name = library = "roi_align_fwd"
+    argtypes = _RoiAlignKernel.argtypes + [ctypes.c_void_p] * 2
     source = "aldi_tpu_torch/csrc/roi_align_fwd.cu"
     replaces = "aldi_tpu/ops/pallas_roi_align.py:183"
 
@@ -101,6 +115,8 @@ class RoiAlignBwd(_RoiAlignKernel):
     """K2 backward: d(features) of ``RoiAlignFwd`` for a cotangent."""
 
     name = library = "roi_align_bwd"
+    argtypes = (_RoiAlignKernel.argtypes
+                + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
     source = "aldi_tpu_torch/csrc/roi_align_bwd.cu"
     replaces = "aldi_tpu/ops/roi_align.py:342"
 
@@ -109,7 +125,8 @@ class RoiAlignBwd(_RoiAlignKernel):
         """grad [B, P, out, out, C] (float32 or bfloat16) on the card; boxes
         and levels as for the forward; feat_shapes the per-level (H_l, W_l).
         Returns per-level [B, H_l, W_l, C] gradients in ``feat_dtype``,
-        accumulated in float32."""
+        summed in float32 and written once by the kernel: no float32 table
+        of the levels is allocated, zeroed or cast."""
         b, p, output_size, _, c = grad.shape
         self._check(feat_shapes, grad.dtype, boxes, levels,
                     len(feat_shapes), strides)
@@ -118,13 +135,25 @@ class RoiAlignBwd(_RoiAlignKernel):
                              f"got {feat_dtype}")
         if grad.device != boxes.device or not grad.is_contiguous():
             raise ValueError("grad must be contiguous on the boxes' device")
-        tables = [torch.zeros((b, h, w, c), dtype=torch.float32,
-                              device=boxes.device) for h, w in feat_shapes]
-        if b * p:
-            self._launch([t.data_ptr() for t in tables], feat_shapes,
-                         strides, boxes, levels, c, output_size,
-                         sampling_ratio, grad.dtype, grad.data_ptr())
-        return [t.to(feat_dtype) for t in tables]
+        if b * p == 0:
+            return [torch.zeros((b, h, w, c), dtype=feat_dtype,
+                                device=boxes.device) for h, w in feat_shapes]
+        outs = [torch.empty((b, h, w, c), dtype=feat_dtype,
+                            device=boxes.device) for h, w in feat_shapes]
+        size = self.lib().aldi_roi_align_bwd_scratch_bytes
+        size.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+        size.restype = ctypes.c_longlong
+        hw = np.asarray(feat_shapes, np.int32)
+        n_bytes = size(hw.ctypes.data, len(feat_shapes), b * p, p)
+        if n_bytes < 0:
+            raise ValueError(f"roi_align_bwd: bad level shapes {feat_shapes}")
+        # the per-level box lists and the tile flags of the binning pass
+        scratch = torch.empty(n_bytes, dtype=torch.uint8, device=boxes.device)
+        self._launch([t.data_ptr() for t in outs], feat_shapes, strides,
+                     boxes, levels, c, output_size, sampling_ratio,
+                     grad.dtype, grad.data_ptr(), _DTYPE_CODES[feat_dtype],
+                     scratch.data_ptr())
+        return outs
 
 
 roi_align_fwd = RoiAlignFwd()

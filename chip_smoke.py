@@ -49,8 +49,11 @@ failure exits non-zero:
    and read just after. Checks: finite losses, trainable parameters moved,
    frozen ones (stem and res2) did not, the teacher differs from the
    student after step 2, every kernel of the path launched. Then one step
-   by stage, one traced step, and a tiny float32 step on the card against
-   the same step on the CPU.
+   by stage, one traced step, and K2's forward and backward held against
+   their plain versions and timed at each of the warm-up step's own K2
+   launches (its real boxes and levels, recorded with the level shapes and
+   the box head's copies of levels that are not contiguous, timed). Then a
+   tiny float32 step on the card against the same step on the CPU.
 5. Print the card line, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -139,7 +142,8 @@ def roi_bound(features, boxes, levels, output_size=7, sampling_ratio=2):
 
 def check_roi(name, features, boxes, levels, plain_iters=3, kernel_iters=20):
     """Hold the kernel against its plain version on these inputs and time
-    both. Returns a dict of the numbers; fails the run on disagreement."""
+    both (the plain version not with ``plain_iters`` 0). Returns a dict of
+    the numbers; fails the run on disagreement."""
     import torch
 
     from aldi_tpu_torch.ops.roi_align import roi_align_plain
@@ -161,16 +165,17 @@ def check_roi(name, features, boxes, levels, plain_iters=3, kernel_iters=20):
                  kernel_iters)
     plain_ms = cuda_ms(
         lambda: roi_align_plain(features, boxes, levels, ROI_STRIDES),
-        plain_iters, warmup=1)
+        plain_iters, warmup=1) if plain_iters else None
     bound_ms, bound_by = roi_bound(features, boxes, levels)
     per_level = torch.bincount(levels[levels >= 0].flatten().long(),
                                minlength=len(features)).tolist()
+    plain_text = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
     print(f"[kernel] {name}: boxes {tuple(boxes.shape[:2])}, valid per level "
           f"p2..p5 {per_level}"
           f" dtype {str(features[0].dtype).split('.')[-1]}: max abs err "
           f"{err:.3g}, tolerance {tol_text}: {'ok' if ok else 'FAIL'}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f}"
-          f" ms ({bound_by})", flush=True)
+          f"kernel {ms:.4f} ms, plain {plain_text}, bound {bound_ms:.4f}"
+          f" ms ({bound_by}), {bound_ms / ms:.3f} of the bound", flush=True)
     if not ok:
         fail(f"roi_align_fwd disagrees with its plain version ({name})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -327,16 +332,11 @@ def roi_bwd_bound(grad, boxes, levels, feat_shapes):
                                  else "operations")
 
 
-def check_roi_bwd(dtype, seed, b=TRAIN_IMAGES, p=512, plain_iters=2,
-                  kernel_iters=10):
-    """The ROIAlign backward kernel against ``roi_align_plain_backward`` at
-    the training step's shapes, with times. Tolerance: float32, 1e-5 of the
-    gradient's scale (the kernel's atomics add in another order on every
-    run); bfloat16, one bf16 ulp of each value after the cast."""
+def roi_bwd_inputs(dtype, seed, b=TRAIN_IMAGES, p=512):
+    """Synthetic ROIAlign backward inputs at a training step's shape: the
+    boxes and levels of ``synthetic_roi_inputs``, the level shapes and a
+    cotangent made on the card from a seed."""
     import torch
-
-    from aldi_tpu_torch.ops.roi_align import roi_align_plain_backward
-    from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd
 
     feats, boxes, levels = synthetic_roi_inputs(dtype, seed, b=b, p=p)
     shapes = [(int(f.shape[1]), int(f.shape[2])) for f in feats]
@@ -344,7 +344,24 @@ def check_roi_bwd(dtype, seed, b=TRAIN_IMAGES, p=512, plain_iters=2,
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     grad = torch.randn((b, p, 7, 7, 256), generator=g, device="cuda").to(
         dtype)
-    got = roi_align_bwd(grad, boxes, levels, shapes, dtype, ROI_STRIDES)
+    return grad, boxes, levels, shapes
+
+
+def check_roi_bwd(name, grad, boxes, levels, shapes, plain_iters=2,
+                  kernel_iters=10, backward=None):
+    """The ROIAlign backward (``backward``, by default the kernel's wrapper
+    ``roi_align_bwd``) against ``roi_align_plain_backward`` on these inputs,
+    with times, the gradient in the cotangent's dtype. Tolerance: float32,
+    1e-5 of the gradient's scale (the sums run in another order);
+    bfloat16, one bf16 ulp of each value after the cast."""
+    import torch
+
+    from aldi_tpu_torch.ops.roi_align import roi_align_plain_backward
+    from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd
+
+    backward = backward or roi_align_bwd
+    dtype = grad.dtype
+    got = backward(grad, boxes, levels, shapes, dtype, ROI_STRIDES)
     want = roi_align_plain_backward(grad, boxes, levels, shapes, dtype,
                                     ROI_STRIDES)
     torch.cuda.synchronize()
@@ -360,19 +377,24 @@ def check_roi_bwd(dtype, seed, b=TRAIN_IMAGES, p=512, plain_iters=2,
                  for x, y in zip(got, want))
         tol_text = "one bfloat16 ulp of each value (2^-7 relative)"
     del got, want
-    ms = cuda_ms(lambda: roi_align_bwd(grad, boxes, levels, shapes, dtype,
-                                       ROI_STRIDES), kernel_iters)
+    ms = cuda_ms(lambda: backward(grad, boxes, levels, shapes, dtype,
+                                  ROI_STRIDES), kernel_iters)
     plain_ms = cuda_ms(lambda: roi_align_plain_backward(
         grad, boxes, levels, shapes, dtype, ROI_STRIDES), plain_iters,
-        warmup=1)
+        warmup=1) if plain_iters else None
     bound_ms, bound_by = roi_bwd_bound(grad, boxes, levels, shapes)
-    print(f"[kernel] roi_align_bwd: boxes {(b, p)}, dtype "
-          f"{str(dtype).split('.')[-1]}: max abs err {err:.3g}, tolerance "
-          f"{tol_text}: {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
-          f"(zeroed float32 tables + launch + cast), plain {plain_ms:.3f} ms,"
-          f" bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    b, p = boxes.shape[:2]
+    per_level = torch.bincount(levels[levels >= 0].flatten().long(),
+                               minlength=len(shapes)).tolist()
+    plain_text = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
+    print(f"[kernel] roi_align_bwd, {name}: boxes {(b, p)}, valid per level "
+          f"p2..p5 {per_level}, dtype {str(dtype).split('.')[-1]}: max abs "
+          f"err {err:.3g}, tolerance {tol_text}: {'ok' if ok else 'FAIL'}; "
+          f"kernel {ms:.4f} ms (the wrapper's whole call), plain "
+          f"{plain_text}, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.3f} of the bound", flush=True)
     if not ok:
-        fail("roi_align_bwd disagrees with its plain version")
+        fail(f"roi_align_bwd disagrees with its plain version ({name})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -711,7 +733,8 @@ def params_of(module):
 def training_phase(card, kernels, config=FLAGSHIP):
     """The DAOD step of ``config`` at full width through its entry points
     (see the module docstring). Returns the launch counts of the timed
-    steps."""
+    steps, K2's numbers at the step's own launch shapes and those launches
+    (``RoiLaunches``)."""
     import torch
 
     from aldi_tpu_torch.config import get_cfg
@@ -749,10 +772,21 @@ def training_phase(card, kernels, config=FLAGSHIP):
     start = params_of(state.student)
 
     t0 = time.perf_counter()
-    state, m = step(state, batches[0], draws[0])
-    torch.cuda.synchronize()
+    with RoiLaunches(det) as roi_launches:  # K2's launch shapes
+        state, m = step(state, batches[0], draws[0])
+        torch.cuda.synchronize()
     print(f"[train] {name} warm-up step: "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; its K2 launches "
+          f"(boxes per image, valid boxes per level p2..p5): " + "; ".join(
+              f"{r['kind']} {tuple(r['boxes'].shape[:2])} "
+              f"{torch.bincount(r['levels'][r['levels'] >= 0].long(), minlength=4).tolist()}"
+              for r in roi_launches.launches)
+          + f"; box-head calls {roi_launches.calls}, with levels that are "
+          f"not contiguous (its .contiguous() copies them before K2): "
+          + ("none" if not roi_launches.copies else "; ".join(
+              f"call {k + 1}: {n} levels, first {shape} strides {stride}, "
+              f"copy {ms:.4f} ms" for k, n, shape, stride, ms
+              in roi_launches.copies)), flush=True)
 
     for k in kernels:
         k.launches = 0
@@ -828,7 +862,10 @@ def training_phase(card, kernels, config=FLAGSHIP):
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
               + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
               flush=True)
-    return launches
+    del state, batches, draws
+    torch.cuda.empty_cache()
+    step_k2 = time_step_launches(name, roi_launches.launches)
+    return launches, step_k2, roi_launches.launches
 
 
 def moved(tree, device):
@@ -1108,7 +1145,6 @@ def serving_phase(card, config, kernels, numbers=None):
     from aldi_tpu_torch.config import get_cfg
     from aldi_tpu_torch.engine.export import make_serving_fn
     from aldi_tpu_torch.models import build_detector
-    from aldi_tpu_torch.ops.roi_align import box_levels
 
     cfg = get_cfg()
     cfg.merge_from_file(config)
@@ -1157,16 +1193,13 @@ def serving_phase(card, config, kernels, numbers=None):
 
     images, sizes = requests[-1]
     if numbers is not None:  # K2 on the last request's real proposals
-        with torch.inference_mode():
-            feats = det.backbone(det.preprocess(images))
-            logits, deltas = det.rpn_head(feats)
-            pboxes, _, pvalid = det.proposals(logits, deltas, sizes)
-        feats = [f.contiguous() for f in feats[:-1]]
-        pboxes = pboxes.float().contiguous()
-        levels = box_levels(pboxes, pvalid, det.roi_strides)
+        feats, pboxes, levels, copied = request_proposals(det, images, sizes)
+        print(f"[serving] {name}: {copied} of {len(feats)} pyramid levels "
+              f"were not contiguous before the pooler (box_pooler's "
+              f".contiguous() copies those)", flush=True)
         numbers["roi_align_fwd"] = check_roi(
             "serving request, real proposals", feats, pboxes, levels)
-        del feats, logits, deltas
+        del feats
 
     stages = staged_request(det, images, sizes)
     print(f"[serving] {name}, one request by stage (ms, synchronized): "
@@ -1185,6 +1218,130 @@ def serving_phase(card, config, kernels, numbers=None):
     del det, fn, requests, out
     torch.cuda.empty_cache()
     return launches
+
+
+def request_proposals(det, images, sizes):
+    """The pooler's inputs of one request: the levels p2..p5 as the box
+    head hands them to ``box_pooler``, the proposals [B, P, 4] float32 and
+    their levels; and how many levels were not contiguous before (the box
+    head's ``.contiguous()`` copies those)."""
+    import torch
+
+    from aldi_tpu_torch.ops.roi_align import box_levels
+
+    with torch.inference_mode():
+        feats = det.backbone(det.preprocess(images))
+        logits, deltas = det.rpn_head(feats)
+        pboxes, _, pvalid = det.proposals(logits, deltas, sizes)
+    copied = sum(not f.is_contiguous() for f in feats[:-1])
+    feats = [f.contiguous() for f in feats[:-1]]
+    pboxes = pboxes.float().contiguous()
+    return feats, pboxes, box_levels(pboxes, pvalid, det.roi_strides), copied
+
+
+class RoiLaunches:
+    """While active, records every K2 forward and backward launch: copies
+    of its boxes and levels, its level shapes, channels, dtype and strides;
+    and, per call of the box head, the levels it hands to ``box_pooler``
+    that are not contiguous (the box head's ``.contiguous()`` copies them
+    before K2), with the shape and strides of the first and the time of
+    that copy on the card."""
+
+    def __init__(self, det):
+        self.det = det
+        self.launches = []
+        self.calls = 0
+        self.copies = []  # (call, levels, shape, strides, ms)
+
+    def __enter__(self):
+        from aldi_tpu_torch.ops.roi_align_kernel import (RoiAlignBwd,
+                                                         RoiAlignFwd)
+
+        self.saved = (RoiAlignFwd.__call__, RoiAlignBwd.__call__)
+        fwd, bwd = self.saved
+        rec = self.launches
+
+        def fwd_call(kernel, features, boxes, levels, strides, output_size=7,
+                     sampling_ratio=2):
+            rec.append(dict(kind="forward", boxes=boxes.clone(),
+                            levels=levels.clone(), strides=list(strides),
+                            hws=[tuple(f.shape[1:3]) for f in features],
+                            c=features[0].shape[-1],
+                            dtype=features[0].dtype, out=output_size))
+            return fwd(kernel, features, boxes, levels, strides, output_size,
+                       sampling_ratio)
+
+        def bwd_call(kernel, grad, boxes, levels, feat_shapes, feat_dtype,
+                     strides, sampling_ratio=2):
+            rec.append(dict(kind="backward", boxes=boxes.clone(),
+                            levels=levels.clone(), strides=list(strides),
+                            hws=[tuple(hw) for hw in feat_shapes],
+                            c=grad.shape[-1], dtype=grad.dtype,
+                            out=grad.shape[2]))
+            return bwd(kernel, grad, boxes, levels, feat_shapes, feat_dtype,
+                       strides, sampling_ratio)
+
+        RoiAlignFwd.__call__, RoiAlignBwd.__call__ = fwd_call, bwd_call
+        box_head = self.det.box_head
+
+        def head(features, *args, **kwargs):
+            strided = [f for f in features[:-1] if not f.is_contiguous()]
+            if strided:
+                self.copies.append((
+                    self.calls, len(strided), tuple(strided[0].shape),
+                    strided[0].stride(),
+                    cuda_ms(lambda: [f.contiguous() for f in strided], 3,
+                            warmup=1)))
+            self.calls += 1
+            return box_head(features, *args, **kwargs)
+
+        self.det.box_head = head
+        return self
+
+    def __exit__(self, *exc):
+        from aldi_tpu_torch.ops.roi_align_kernel import (RoiAlignBwd,
+                                                         RoiAlignFwd)
+
+        RoiAlignFwd.__call__, RoiAlignBwd.__call__ = self.saved
+        del self.det.box_head
+
+
+def time_step_launches(model, launches, seed=40, plain_iters=1,
+                       backward=None):
+    """K2's forward and backward (``backward``: as for ``check_roi_bwd``)
+    at one training step's own launch shapes: each recorded launch's real
+    boxes and levels with seeded random features or cotangent of its
+    shapes, held against the plain version and timed. Returns the
+    per-launch numbers."""
+    import torch
+
+    out, total = [], {"forward": 0.0, "backward": 0.0}
+    for i, rec in enumerate(launches):
+        if rec["strides"] != ROI_STRIDES or rec["out"] != 7:
+            fail(f"{model}: a K2 launch with strides {rec['strides']} and "
+                 f"output {rec['out']}, not the pooler's")
+        g = torch.Generator(device="cuda").manual_seed(seed + i)
+        b, p = rec["boxes"].shape[:2]
+        name = f"{model} step launch {i + 1} ({rec['kind']})"
+        if rec["kind"] == "forward":
+            feats = [torch.randn((b, h, w, rec["c"]), generator=g,
+                                 device="cuda").to(rec["dtype"])
+                     for h, w in rec["hws"]]
+            r = check_roi(name, feats, rec["boxes"], rec["levels"],
+                          plain_iters=plain_iters, kernel_iters=10)
+            del feats
+        else:
+            grad = torch.randn((b, p, 7, 7, rec["c"]), generator=g,
+                               device="cuda").to(rec["dtype"])
+            r = check_roi_bwd(name, grad, rec["boxes"], rec["levels"],
+                              rec["hws"], plain_iters=plain_iters,
+                              kernel_iters=10, backward=backward)
+        total[rec["kind"]] += r["ms"]
+        out.append(dict(kind=rec["kind"], boxes=[b, p], **r))
+    print(f"[train] {model}: K2 at the step's own launch shapes, per step: "
+          + "; ".join(f"{k} {sum(o['kind'] == k for o in out)} launches, "
+                      f"{v:.4f} ms" for k, v in total.items()), flush=True)
+    return out
 
 
 def model_name(cfg):
@@ -1250,7 +1407,9 @@ def main():
     numbers = check_match(anchors, gt, gt_valid)
     del anchors, gt, gt_valid
     for dtype, seed in ((torch.float32, 14), (torch.bfloat16, 15)):
-        numbers["roi_align_bwd"] = check_roi_bwd(dtype, seed)
+        numbers["roi_align_bwd"] = check_roi_bwd(
+            "training-step shapes, synthetic boxes",
+            *roi_bwd_inputs(dtype, seed))
     # K3a/K3b: a tiny and a ragged grid, then one image's 12 heads of
     # ViTDet-B's global blocks at 1024x2048 (grid 64x128, N = 8192)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1277,10 +1436,11 @@ def main():
         tiny_reference_check(VIT_ALDI)
 
     # -- 4. training phase: each DAOD step through its entry points
-    launches = training_phase(card, flagship_kernels)
+    launches, step_k2, _ = training_phase(card, flagship_kernels)
     torch.cuda.empty_cache()
     tiny_train_reference_check()
-    vit_launches = training_phase(card, vit_kernels, VIT_ALDI)
+    vit_launches, vit_step_k2, _ = training_phase(card, vit_kernels,
+                                                  VIT_ALDI)
     torch.cuda.empty_cache()
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
@@ -1305,6 +1465,15 @@ def main():
         entry["launches_by_path"] = {path: c[k.name]
                                      for path, c in by_path.items()
                                      if k.name in c}
+        kind = {"roi_align_fwd": "forward",
+                "roi_align_bwd": "backward"}.get(k.name)
+        if kind:  # K2 at each training step's own launch shapes
+            entry["step_launches"] = {
+                f"{m} training": [{key: r[key] for key in (
+                    "boxes", "ms", "bound_ms", "plain_ms", "max_abs_err")}
+                    for r in rs if r["kind"] == kind]
+                for m, rs in (("R50-FPN", step_k2),
+                              ("ViTDet-B", vit_step_k2))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ machine that has only PyTorch: there, skip the JAX-loading conftest with
 
 Tolerances: the rel-pos attention kernels K3a/K3b as ``chip_smoke.check_attn``
 states them; the ROIAlign kernels against their plain versions, float32
-1e-5 (the same arithmetic, summed in another order; the backward's atomics
-add in another order on every run) and bfloat16 one bf16 ulp of the value
+1e-5 (the same arithmetic, summed in another order: the plain backward's
+index_add_ adds with atomics on the card, the kernel tile by tile) and
+bfloat16 one bf16 ulp of the value
 (2^-7 relative); the matcher kernels exactly (the same IoU rounding); the
 tiny detector on the card against the CPU in float32 with TF32 off, 1e-3 on
 box coordinates of up to 128 px and 1e-4 on scores, and the tiny training
@@ -171,6 +172,111 @@ def test_roi_align_bwd_kernel_matches_plain(card, dtype):
                 1.0, w.abs().max().item())
         else:
             assert bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-6).all())
+
+
+def _bwd_matches_plain(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            assert (g - w).abs().max().item() <= 1e-5 * max(
+                1.0, w.abs().max().item())
+        else:
+            assert bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-6).all())
+
+
+def _bwd_case(card, dtype, boxes, levels, c, out=7, canvas=(96, 160),
+              seed=0):
+    """The backward kernel and the plain backward on these boxes and a
+    seeded cotangent; returns (kernel's, plain's) per-level gradients."""
+    shapes = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in STRIDES]
+    b, p = levels.shape
+    g = torch.Generator(device=card).manual_seed(seed)
+    grad = torch.randn((b, p, out, out, c), generator=g, device=card).to(
+        dtype)
+    got = roi_align_bwd(grad, boxes, levels, shapes, dtype, STRIDES)
+    want = roi_align_plain_backward(grad, boxes, levels, shapes, dtype,
+                                    STRIDES)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("channels", [8, 64, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_channel_counts(card, dtype, channels):
+    """Channel counts below one 16-byte vector per thread pair, and above
+    one block's 256 channels (two channel chunks)."""
+    feats, boxes, valid = _roi_inputs(14, c=channels)
+    bx = torch.from_numpy(boxes).to(card)
+    levels = box_levels(bx, torch.from_numpy(valid).to(card), STRIDES)
+    _bwd_matches_plain(*_bwd_case(card, dtype, bx, levels, channels), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_other_output_size(card, dtype):
+    """POOLER_RESOLUTION 14: a 28 x 28 sample lattice per box."""
+    feats, boxes, valid = _roi_inputs(15, c=64)
+    bx = torch.from_numpy(boxes).to(card)
+    levels = box_levels(bx, torch.from_numpy(valid).to(card), STRIDES)
+    _bwd_matches_plain(*_bwd_case(card, dtype, bx, levels, 64, out=14),
+                       dtype)
+
+
+def test_roi_align_bwd_kernel_boxes_straddle_tiles(card):
+    """p2 boxes whose corners fall on both sides of the 8-pixel tile edges
+    (every 32 px at stride 4), and boxes of odd sizes around them."""
+    rng = np.random.default_rng(16)
+    edge = rng.integers(1, 5, (2, 40)) * 32.0
+    cy = rng.integers(1, 3, (2, 40)) * 32.0 + rng.uniform(-2, 2, (2, 40))
+    half = rng.uniform(2, 30, (2, 40, 2))
+    boxes = np.stack([edge - half[..., 0], cy - half[..., 1],
+                      edge + half[..., 0], cy + half[..., 1]], -1)
+    bx = torch.from_numpy(boxes.astype(np.float32)).to(card)
+    levels = torch.zeros((2, 40), dtype=torch.int32, device=card)  # p2
+    for dtype in (torch.float32, torch.bfloat16):
+        _bwd_matches_plain(*_bwd_case(card, dtype, bx, levels, 256), dtype)
+
+
+def test_roi_align_bwd_kernel_box_covers_a_level(card):
+    """A p5 box larger than the canvas: its samples cover the whole level,
+    every tile of it lists the box."""
+    bx = torch.tensor([[[-40.0, -30.0, 200.0, 130.0],
+                        [10.0, 10.0, 150.0, 90.0]]], device=card)
+    levels = torch.full((1, 2), 3, dtype=torch.int32, device=card)
+    got, want = _bwd_case(card, torch.float32, bx, levels, 64)
+    _bwd_matches_plain(got, want, torch.float32)
+    assert bool((got[3] != 0).all())
+
+
+def test_roi_align_bwd_kernel_level_without_boxes_is_zero(card):
+    """Levels that no box touches are written as zeros, although the
+    wrapper allocates them with torch.empty: the allocator is first filled
+    with NaN."""
+    torch.full((64 << 20,), float("nan"), device=card)  # freed, cached
+    feats, boxes, valid = _roi_inputs(17, c=256)
+    bx = torch.from_numpy(boxes).to(card)
+    levels = box_levels(bx, torch.from_numpy(valid).to(card), STRIDES)
+    levels = torch.where(levels >= 0, torch.zeros_like(levels), levels)
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = _bwd_case(card, dtype, bx, levels, 256)
+        _bwd_matches_plain(got, want, dtype)
+        assert all(not g.any() for g in got[1:])
+        assert bool(got[0].isfinite().all()) and got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_is_deterministic(card, dtype):
+    """Two launches give bitwise equal gradients (no atomics)."""
+    feats, boxes, valid = _roi_inputs(18, c=256)
+    bx = torch.from_numpy(boxes).to(card)
+    levels = box_levels(bx, torch.from_numpy(valid).to(card), STRIDES)
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    grad = torch.randn((3, 64, 7, 7, 256), device=card).to(dtype)
+    first = roi_align_bwd(grad, bx, levels, shapes, dtype, STRIDES)
+    second = roi_align_bwd(grad, bx, levels, shapes, dtype, STRIDES)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_roi_align_function_backward_goes_to_the_kernel(card):
