@@ -16,7 +16,6 @@ image with the Bernoulli draws.
 import math
 
 import torch
-import torch.nn.functional as F
 
 _GRAY = (0.299, 0.587, 0.114)
 _BLUR_RADIUS = 6  # covers 3*sigma at sigma_max=2.0
@@ -56,6 +55,16 @@ def color_jitter(img, do_jitter, do_gray, factors):
     return torch.where(_per_image(do_gray), _gray(out).expand_as(out), out)
 
 
+def _reflect_pad(x, dim, p):
+    """Reflect padding of p along ``dim`` (the edge not repeated), in the
+    input's own layout: PyTorch's CUDA reflection pad writes NCHW storage,
+    which would send the blurred views' NHWC images NCHW-stored into the
+    backbone's convolutions."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, p).flip(dim), x,
+                      x.narrow(dim, n - 1 - p, p).flip(dim)], dim)
+
+
 def gaussian_blur(img, do_blur, sigma):
     """Separable spatial gaussian (13 taps, sigma [B]) with reflect padding,
     where do_blur [B]; the taps are summed in the JAX package's order."""
@@ -64,15 +73,13 @@ def gaussian_blur(img, do_blur, sigma):
     kern = torch.exp(-0.5 * (xs / sigma[:, None]) ** 2)
     kern = kern / kern.sum(-1, keepdim=True)  # [B, 13]
     h, w = img.shape[1], img.shape[2]
-    x = img.permute(0, 3, 1, 2)  # [B, 3, H, W]
-    xh = F.pad(x, (0, 0, p, p), mode="reflect")
-    x1 = sum(xh[:, :, i:i + h] * _per_image(kern[:, i])
+    xh = _reflect_pad(img, 1, p)  # [B, H + 2p, W, 3]
+    x1 = sum(xh[:, i:i + h] * _per_image(kern[:, i])
              for i in range(2 * p + 1))
-    xw = F.pad(x1, (p, p, 0, 0), mode="reflect")
-    x2 = sum(xw[:, :, :, i:i + w] * _per_image(kern[:, i])
+    xw = _reflect_pad(x1, 2, p)
+    x2 = sum(xw[:, :, i:i + w] * _per_image(kern[:, i])
              for i in range(2 * p + 1))
-    blurred = torch.clamp(x2, 0.0, 255.0).permute(0, 2, 3, 1)
-    return torch.where(_per_image(do_blur), blurred, img)
+    return torch.where(_per_image(do_blur), torch.clamp(x2, 0.0, 255.0), img)
 
 
 def random_erase(img, hw, do_erase, area_frac, aspect, y_u, x_u, noise):

@@ -8,7 +8,9 @@ the card. Unlike the Pallas kernels, one launch covers every image of the
 batch. ``match_boxes`` sends CPU tensors to ``match_boxes_plain``
 (``pairwise_iou`` + ``matcher.match``) and CUDA tensors to the kernels; it
 never falls back. The libraries are built on the first launch, never on
-import.
+import. ``match_iou_culled`` and ``low_quality_mask_culled`` replay the
+kernels' per-block gt culling in plain PyTorch, for the tests; nothing on
+the training path calls them.
 """
 
 import ctypes
@@ -125,6 +127,105 @@ def low_quality_mask_plain(anchors, gt_boxes, gt_valid, best):
     iou = _masked_iou(anchors, gt_boxes, gt_valid)
     b = best[:, None, :]
     return ((iou == b) & gt_valid[:, None, :] & (b > 0)).any(dim=-1)
+
+
+def _iou_rn(a, g):
+    """``pairwise_iou``'s arithmetic for broadcast anchors a [..., 4] and gt
+    g [..., 4], dividing only where the boxes intersect (0 elsewhere, as
+    0 / union is): the kernels' ``iou_rn``."""
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_g = (g[..., 2] - g[..., 0]) * (g[..., 3] - g[..., 1])
+    w = (torch.minimum(a[..., 2], g[..., 2])
+         - torch.maximum(a[..., 0], g[..., 0])).clamp(min=0)
+    h = (torch.minimum(a[..., 3], g[..., 3])
+         - torch.maximum(a[..., 1], g[..., 1])).clamp(min=0)
+    inter = w * h
+    union = area_a + area_g - inter
+    return torch.where((inter > 0) & (union > 0), inter / union,
+                       torch.zeros_like(inter))
+
+
+def candidate_lists(anchors, gt_boxes, keep, block):
+    """The kernels' per-block gt culling: anchors cut into blocks of
+    ``block`` consecutive anchors (the last one ragged), each block's union
+    box, and the slots that pass ``keep`` [B, M] and strictly overlap it,
+    as lists in ascending slot order. Returns (blocked anchors [nb, block,
+    4], in-range flags [nb, block], list [B, nb, M] (listed slots first),
+    list lengths [B, nb])."""
+    n = anchors.shape[0]
+    nb = -(-n // block)
+    pad = nb * block - n
+    a = torch.cat([anchors, anchors.new_zeros((pad, 4))]).reshape(
+        nb, block, 4)
+    inside = (torch.arange(nb * block, device=anchors.device) < n).reshape(
+        nb, block)
+    inf = torch.full((), float("inf"), device=anchors.device)
+    lo = torch.where(inside[..., None], a[..., :2], inf).amin(1)  # [nb, 2]
+    hi = torch.where(inside[..., None], a[..., 2:], -inf).amax(1)
+    g = gt_boxes[:, None]  # [B, 1, M, 4]
+    listed = (keep[:, None] & (g[..., 2] > lo[:, None, 0])
+              & (g[..., 0] < hi[:, None, 0]) & (g[..., 3] > lo[:, None, 1])
+              & (g[..., 1] < hi[:, None, 1]))  # [B, nb, M]
+    order = torch.sort((~listed).to(torch.int8), dim=-1, stable=True).indices
+    return a, inside, order, listed.sum(-1)
+
+
+def _listed_entry(gt_boxes, order, count, c):
+    """List entry c of every block: (slot [B, nb], its box [B, nb, 4],
+    whether the block's list reaches c [B, nb, 1])."""
+    slot = order[..., c]
+    box = torch.gather(gt_boxes, 1, slot.reshape(slot.shape[0], -1, 1)
+                       .expand(-1, -1, 4)).reshape(*slot.shape, 4)
+    return slot, box, (c < count)[..., None]
+
+
+def match_iou_culled(anchors, gt_boxes, gt_valid, block):
+    """K1a as the kernel computes it, in plain PyTorch (tests only): per
+    block of ``block`` anchors the candidate list (valid slots overlapping
+    the block's union box, ascending), each anchor started at (0, first
+    valid slot), or (-1, 0) without one, and walked over the list,
+    replacing on a strictly greater IoU; per slot the maximum of the
+    blocks' maxima over a zero start. Same arguments and results as
+    ``match_iou_plain``."""
+    b, m = gt_valid.shape
+    n = anchors.shape[0]
+    a, inside, order, count = candidate_lists(anchors, gt_boxes, gt_valid,
+                                              block)
+    has_valid = gt_valid.any(-1)[:, None, None]
+    first_valid = gt_valid.to(torch.int32).argmax(-1)[:, None, None]
+    shape = (b,) + a.shape[:2]
+    best = torch.where(has_valid, 0.0, -1.0).expand(shape).clone()
+    arg = torch.where(has_valid, first_valid, 0).expand(shape).clone()
+    top = torch.zeros((b, m), device=anchors.device)
+    for c in range(int(count.max())):
+        slot, g, walk = _listed_entry(gt_boxes, order, count, c)
+        v = _iou_rn(a[None], g[:, :, None])  # [B, nb, block]
+        upd = walk & (v > best)
+        best = torch.where(upd, v, best)
+        arg = torch.where(upd, slot[..., None].to(arg.dtype), arg)
+        block_top = torch.where(walk & inside, v, 0.0).amax(-1)
+        top.scatter_reduce_(1, slot, block_top, "amax")
+    vals = best.reshape(b, -1)[:, :n]
+    idx = arg.reshape(b, -1)[:, :n].to(torch.int32)
+    return vals, idx, torch.where(gt_valid, top, -1.0)
+
+
+def low_quality_mask_culled(anchors, gt_boxes, gt_valid, best, block):
+    """K1b as the kernel computes it, in plain PyTorch (tests only): per
+    block the list of valid slots with best > 0 that overlap its union box,
+    each anchor walked over it until an IoU equals the slot's best. Same
+    arguments and result as ``low_quality_mask_plain``."""
+    n = anchors.shape[0]
+    a, _, order, count = candidate_lists(anchors, gt_boxes,
+                                         gt_valid & (best > 0), block)
+    hit = torch.zeros((gt_valid.shape[0],) + a.shape[:2], dtype=torch.bool,
+                      device=anchors.device)
+    for c in range(int(count.max())):
+        slot, g, walk = _listed_entry(gt_boxes, order, count, c)
+        best_g = torch.gather(best, 1, slot)
+        v = _iou_rn(a[None], g[:, :, None])
+        hit = hit | (walk & (v == best_g[..., None]))
+    return hit.reshape(hit.shape[0], -1)[:, :n]
 
 
 def match_boxes_plain(anchors, gt_boxes, gt_valid, thresholds, labels,

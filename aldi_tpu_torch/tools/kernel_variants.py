@@ -13,7 +13,13 @@ also on a real R50-FPN request's proposals (seeded weights); then the time
 of each CUDA kernel of one bfloat16 call. The previous ROIAlign sources are
 kept in ``aldi_tpu_torch/tools/previous/``; the previous backward, whose
 entry point takes zeroed float32 tables, runs behind the previous wrapper
-(zeroed tables, the launch, a cast).
+(zeroed tables, the launch, a cast). The anchor matcher (``match_iou``,
+K1a and K1b in one source): each version exactly equal to the plain
+versions, with its times, bounds and listed pairs
+(``chip_smoke.check_match``), at the kernel phase's shapes (4 images,
+523,776 anchors, 100 synthetic gt slots), in the worst case (100 gt boxes
+that each cover the canvas) and, with ``--step-shapes``, at one R50-FPN step's K1 calls;
+the previous, dense source is ``tools/previous/match_iou_dense.cu``.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -23,6 +29,9 @@ Run from the repository root on a machine with a CUDA card::
     python3 -m aldi_tpu_torch.tools.kernel_variants roi_align_bwd \\
         old=aldi_tpu_torch/tools/previous/roi_align_bwd_atomic.cu \\
         new=aldi_tpu_torch/csrc/roi_align_bwd.cu
+    python3 -m aldi_tpu_torch.tools.kernel_variants match_iou \\
+        old=aldi_tpu_torch/tools/previous/match_iou_dense.cu \\
+        new=aldi_tpu_torch/csrc/match_iou.cu --step-shapes
 
 Each argument after the library name is ``name=source`` followed by any
 number of ``|old=>new`` text substitutions (Python escapes allowed). The
@@ -209,18 +218,57 @@ def run_roi(args, names):
               + kernel_times(fn), flush=True)
 
 
+def run_match(args, names):
+    """K1a/K1b: each version against the plain versions, with its times and
+    bounds (``chip_smoke.check_match``), at the kernel phase's shapes (4
+    images, the flagship's 523,776 anchors, 100 synthetic gt slots), in the
+    worst case (100 valid gt boxes that each cover the canvas) and, with
+    ``--step-shapes``, at the K1 calls of one R50-FPN training step."""
+    import torch
+
+    import chip_smoke as cs
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.ops import _build
+    from aldi_tpu_torch.ops.match_kernel import low_quality_mask, match_iou
+    from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
+
+    cases = []
+    if args.step_shapes:  # the R50-FPN training step's own K1 calls
+        _, _, step = cs.training_phase(
+            args.card, [match_iou, low_quality_mask, roi_align_fwd,
+                        roi_align_bwd])
+        cases += [(f"R50-FPN step, {r['site']}",
+                   (r["anchors"], r["gt"], r["valid"]))
+                  for r in step if r["kind"] == "match"]
+    cfg = get_cfg()
+    cfg.merge_from_file(cs.FLAGSHIP)
+    anchors = build_detector(cfg).anchors_cat
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    canvas, b, m = (1024, 2048), cs.TRAIN_IMAGES, cfg.TPU.MAX_GT
+    gt, _, valid = cs.synthetic_gt(gen, b, m, canvas)
+    cases = [("kernel phase, synthetic gt", (anchors, gt, valid)),
+             ("worst case, every gt box covers the canvas",
+              (anchors, *cs.covering_gt(gen, b, m, canvas)))] + cases
+    for name in names + names[:2]:
+        _build._loaded["match_iou"] = load_variant(args.out, name)
+        for label, inputs in cases:
+            cs.check_match(f"{name}, {label}", *inputs, plain_iters=0)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("library", choices=["flash_attn_fwd",
                                             "flash_attn_bwd",
                                             "roi_align_fwd",
-                                            "roi_align_bwd"])
+                                            "roi_align_bwd",
+                                            "match_iou"])
     parser.add_argument("variants", nargs="+")
     parser.add_argument("--bounded-waits", action="store_true")
     parser.add_argument("--step-shapes", action="store_true",
-                        help="ROIAlign: also time each version at the "
-                        "launches of one R50-FPN training step (chip_smoke."
-                        "training_phase runs first)")
+                        help="ROIAlign and the matcher: also time each "
+                        "version at the launches of one R50-FPN training "
+                        "step (chip_smoke.training_phase runs first)")
     parser.add_argument("--out", default="build/kernel_variants")
     args = parser.parse_args()
 
@@ -262,6 +310,8 @@ def main():
     names = list(procs)
     if args.library.startswith("roi_align"):
         return run_roi(args, names)
+    if args.library == "match_iou":
+        return run_match(args, names)
     kernel = flash_attn_fwd if args.library == "flash_attn_fwd" \
         else flash_attn_bwd
     for name in names + names[:2]:

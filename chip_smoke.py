@@ -16,8 +16,10 @@ failure exits non-zero:
    boxes each, p2..p5 of a 1024x2048 canvas, 256 channels) in float32 and
    bfloat16, with boxes of every level, some out of range and some
    invalid; the anchor matcher K1a/K1b (4 images, the canvas's 523,776
-   anchors, 100 gt slots of which about 30% invalid, boxes of 16-512 px),
-   exactly equal; the ROIAlign backward (4 images, 512 boxes each) in
+   anchors, 100 gt slots of which about 30% invalid, boxes of 16-512 px;
+   and its worst case, 100 valid boxes that each cover the canvas),
+   exactly equal, with the pairs the culled kernels list beside the dense
+   count; the ROIAlign backward (4 images, 512 boxes each) in
    float32 and bfloat16; the rel-pos attention K3a/K3b on a tiny 8x8 and a
    ragged 50x84 grid and at ViTDet-B's global blocks (one image's 12
    heads, grid 64x128, N = 8192, head dim 64) in float32 and bfloat16,
@@ -48,12 +50,15 @@ failure exits non-zero:
    and 3 timed steps, launch counts set to 0 just before the timed steps
    and read just after. Checks: finite losses, trainable parameters moved,
    frozen ones (stem and res2) did not, the teacher differs from the
-   student after step 2, every kernel of the path launched. Then one step
-   by stage, one traced step, and K2's forward and backward held against
-   their plain versions and timed at each of the warm-up step's own K2
-   launches (its real boxes and levels, recorded with the level shapes and
-   the box head's copies of levels that are not contiguous, timed). Then a
-   tiny float32 step on the card against the same step on the CPU.
+   student after step 2, every kernel of the path launched, and no call
+   of the box head in the warm-up step had to copy a pyramid level that
+   was not contiguous (NHWC) before K2. Then one step by stage, one traced
+   step (with its layout-conversion kernels counted), and K2's forward and
+   backward and K1a/K1b held against their plain versions and timed at
+   each of the warm-up step's own launches (K2: its real boxes and levels
+   with the level shapes; K1: each call's anchors and gt, and its call
+   site). Then a tiny float32 step on the card against the same step on
+   the CPU.
 5. Print the card line, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +86,7 @@ TIMED_REQUESTS = 3
 TRAIN_IMAGES = 4  # per stream: SOLVER.IMS_PER_BATCH 8 = 4 labeled + 4 unlabeled
 TIMED_STEPS = 3
 MATCH_OPS = 12  # float operations per IoU (4 min/max, 3 sub, 2 mul, add, div)
+MATCH_BLOCK = 256  # anchors per block of K1a/K1b (csrc/match_iou.cu kThreads)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): device
 # memory 3.35 TB/s; float32 on the CUDA cores 67 TFLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -110,6 +116,25 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(kernel, args, iters):
+    """Mean time (ms) of one launch of ``kernel``'s C entry point on
+    ``args`` (device pointers of preallocated tensors, sizes, the stream),
+    from CUDA events around ``iters`` back-to-back launches made straight
+    through ctypes: the kernel alone, where ``cuda_ms`` of a wrapper call
+    whose kernel takes tens of microseconds reads the host's launch rate.
+    These launches are not counted."""
+    import ctypes
+
+    fn = getattr(kernel.lib(), f"aldi_{kernel.name}")
+    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+
+    def launch():
+        if fn(*args):
+            fail(f"{kernel.name}: a timing launch failed")
+
+    return cuda_ms(launch, iters)
 
 
 def roi_bound(features, boxes, levels, output_size=7, sampling_ratio=2):
@@ -232,34 +257,88 @@ def synthetic_gt(gen, b, m, canvas, n_valid=None, invalid_frac=0.3,
     return boxes.contiguous(), torch.where(valid, classes, 0), valid
 
 
-def match_bounds(anchors, gt_valid, best):
+def covering_gt(gen, b, m, canvas):
+    """The matcher's worst case: m valid gt boxes [b, m, 4] per image, each
+    covering the whole canvas (edges up to 64 px beyond it), so that no
+    block of anchors can cull any."""
+    import torch
+
+    def u(lo, hi):
+        return torch.rand((b, m), generator=gen, device="cuda") * (hi - lo) + lo
+
+    h, w = canvas
+    boxes = torch.stack([u(-64, 0), u(-64, 0), u(w, w + 64), u(h, h + 64)],
+                        -1)
+    return boxes.contiguous(), torch.ones((b, m), dtype=torch.bool,
+                                          device="cuda")
+
+
+def intersecting_pairs(anchors, gt, keep):
+    """The (anchor, gt slot) pairs among the slots ``keep`` [B, M] whose
+    boxes intersect (a positive intersection, with ``pairwise_iou``'s
+    arithmetic), counted on the card: the only pairs whose IoU is not 0."""
+    import torch
+
+    pairs = 0
+    for g, k in zip(gt, keep):
+        g = g[k]
+        if g.numel():
+            lt = torch.maximum(anchors[:, None, :2], g[None, :, :2])
+            rb = torch.minimum(anchors[:, None, 2:], g[None, :, 2:])
+            wh = (rb - lt).clamp(min=0)
+            pairs += int(((wh[..., 0] * wh[..., 1]) > 0).sum())
+    return pairs
+
+
+def listed_pairs(anchors, gt, keep, block):
+    """The (anchor, gt slot) pairs the culled kernel walks: per block of
+    ``block`` anchors, its anchors times its listed slots
+    (``match_kernel.candidate_lists``, the kernel's test in plain
+    PyTorch)."""
+    from aldi_tpu_torch.ops.match_kernel import candidate_lists
+
+    _, inside, _, count = candidate_lists(anchors, gt, keep, block)
+    return int((count * inside.sum(-1)).sum())
+
+
+def match_bounds(anchors, gt, gt_valid, best):
     """Least time (ms) the card could take for K1a and for K1b on these
-    inputs, and what sets each. Bytes: the anchors read once, the gt, flags
-    (and for K1b the per-gt best) read once, the outputs written once (K1a
-    8 B per anchor and image plus the per-gt best, K1b 1 B). Operations:
-    MATCH_OPS per IoU that the data needs (K1a: every anchor against every
-    valid gt; K1b: against the valid gt whose best IoU is > 0), over the
-    float32 CUDA-core rate."""
+    inputs, what sets each, and the dense bound (every anchor against every
+    slot). Bytes: the anchors read once, the gt, flags (and for K1b the
+    per-gt best) read once, the outputs written once (K1a 8 B per anchor and
+    image plus the per-gt best, K1b 1 B). Operations: MATCH_OPS per IoU
+    that these inputs need, over the float32 CUDA-core rate: one per pair
+    whose boxes intersect, among the valid slots (K1a) or the valid slots
+    whose best IoU is > 0 (K1b); every other IoU is 0 without computing it.
+    The dense bound counts every anchor against every such slot. Returns
+    one dict per kernel, with the pair counts."""
     n = anchors.shape[0]
     b, m = gt_valid.shape
     gt_bytes = b * m * 17
     out = []
-    for n_bytes, pairs in (
-            (n * 16 + gt_bytes + b * n * 8 + b * m * 4,
-             int(gt_valid.sum()) * n),
-            (n * 16 + gt_bytes + b * m * 4 + b * n,
-             int((gt_valid & (best > 0)).sum()) * n)):
+    for keep, n_bytes in (
+            (gt_valid, n * 16 + gt_bytes + b * n * 8 + b * m * 4),
+            (gt_valid & (best > 0), n * 16 + gt_bytes + b * m * 4 + b * n)):
+        pairs = intersecting_pairs(anchors, gt, keep)
+        dense = int(keep.sum()) * n
         t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
         t_ops = pairs * MATCH_OPS / PEAK_F32_FLOPS * 1e3
-        out.append((max(t_bytes, t_ops),
-                    "bytes" if t_bytes >= t_ops else "operations"))
+        t_dense = dense * MATCH_OPS / PEAK_F32_FLOPS * 1e3
+        out.append(dict(bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        dense_bound_ms=max(t_bytes, t_dense), pairs=pairs,
+                        dense_pairs=dense, keep=keep))
     return out
 
 
-def check_match(anchors, gt, valid, plain_iters=3, kernel_iters=20):
+def check_match(label, anchors, gt, valid, plain_iters=3, kernel_iters=20):
     """K1a and K1b against their plain versions (exact equality of vals,
     idx, the per-gt best, the low-quality mask and the labels), with
-    times. Returns {name: numbers}; fails the run on any difference."""
+    times (``ms``, the wrapper's call by ``cuda_ms`` as for every kernel;
+    ``kernel_ms``, the kernel alone by ``launch_ms``), bounds and the pairs
+    that blocks of ``MATCH_BLOCK`` anchors list (without ``plain_iters``
+    the plain versions are not timed). Returns {name: numbers}; fails the
+    run on any difference."""
     import torch
 
     from aldi_tpu_torch.ops.match_kernel import (
@@ -281,33 +360,61 @@ def check_match(anchors, gt, valid, plain_iters=3, kernel_iters=20):
              "matched idx": int((labels[0] != labels_want[0]).sum()),
              "labels": int((labels[1] != labels_want[1]).sum())}
     ok = not any(diffs.values())
-    (b1, by1), (b2, by2) = match_bounds(anchors, valid, want[2])
+    bounds = match_bounds(anchors, gt, valid, want[2])
     out = {}
-    for name, fn, plain, bound, by in (
-            ("match_iou", lambda: match_iou(anchors, gt, valid),
-             lambda: match_iou_plain(anchors, gt, valid), b1, by1),
-            ("low_quality_mask",
+    b, m = valid.shape
+    n = anchors.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    inputs = (anchors.data_ptr(), n, gt.data_ptr(), valid.data_ptr())
+    scratch = [torch.zeros((b, n), dtype=torch.float32, device="cuda"),
+               torch.zeros((b, n), dtype=torch.int32, device="cuda"),
+               torch.zeros((b, m), dtype=torch.int32, device="cuda")]
+    for (name, kernel, args, fn, plain), bd in zip((
+            ("match_iou", match_iou,
+             inputs + (m, b) + tuple(t.data_ptr() for t in scratch)
+             + (stream,),
+             lambda: match_iou(anchors, gt, valid),
+             lambda: match_iou_plain(anchors, gt, valid)),
+            ("low_quality_mask", low_quality_mask,
+             inputs + (want[2].data_ptr(), m, b, scratch[1].data_ptr(),
+                       stream),
              lambda: low_quality_mask(anchors, gt, valid, want[2]),
-             lambda: low_quality_mask_plain(anchors, gt, valid, want[2]),
-             b2, by2)):
+             lambda: low_quality_mask_plain(anchors, gt, valid, want[2]))),
+            bounds):
         err = (max(float((got[0] - want[0]).abs().max()),
                    float((got[2] - want[2]).abs().max()))
                if name == "match_iou" else float((lowq != lowq_want).any()))
-        out[name] = dict(max_abs_err=err, ms=cuda_ms(fn, kernel_iters),
-                         plain_ms=cuda_ms(plain, plain_iters, warmup=1),
-                         bound_ms=bound, bound_by=by)
-    b, m = valid.shape
-    print(f"[kernel] matcher K1a/K1b: {b} images, {anchors.shape[0]} anchors,"
-          f" {m} gt slots, {int(valid.sum())} valid; differences from the "
-          f"plain version {diffs} (tolerance: exact): "
-          f"{'ok' if ok else 'FAIL'}; positives "
+        out[name] = dict(
+            max_abs_err=err, ms=cuda_ms(fn, kernel_iters),
+            kernel_ms=launch_ms(kernel, args, kernel_iters),
+            plain_ms=(cuda_ms(plain, plain_iters, warmup=1) if plain_iters
+                      else None),
+            bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+            dense_bound_ms=bd["dense_bound_ms"], pairs=bd["pairs"],
+            dense_pairs=bd["dense_pairs"],
+            listed_pairs=listed_pairs(anchors, gt, bd["keep"], MATCH_BLOCK))
+    print(f"[kernel] matcher K1a/K1b, {label}: {b} images, "
+          f"{anchors.shape[0]} anchors, {m} gt slots, {int(valid.sum())} "
+          f"valid; differences from the plain version {diffs} (tolerance: "
+          f"exact): {'ok' if ok else 'FAIL'}; positives "
           f"{int((labels[1] == 1).sum())}, low-quality matches "
           f"{int(lowq.sum())}; " + "; ".join(
-              f"{k} {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, bound "
-              f"{v['bound_ms']:.4f} ms ({v['bound_by']})"
+              f"{k}: wrapper's call {v['ms']:.4f} ms (kernel alone "
+              f"{v['kernel_ms']:.4f} ms), plain "
+              + ("not timed" if v["plain_ms"] is None
+                 else f"{v['plain_ms']:.3f} ms")
+              + f", bound {v['bound_ms']:.4f} ms ({v['bound_by']}), dense "
+              f"bound (all pairs) {v['dense_bound_ms']:.4f} ms; "
+              f"pairs: dense "
+              f"{v['dense_pairs']}, "
+              + f"listed by blocks of {MATCH_BLOCK} {v['listed_pairs']} ("
+              f"{1 - v['listed_pairs'] / max(v['dense_pairs'], 1):.4f} "
+              "culled)"
+              + f", intersecting {v['pairs']}"
               for k, v in out.items()), flush=True)
     if not ok:
-        fail("the matcher kernels disagree with their plain versions")
+        fail(f"the matcher kernels disagree with their plain versions "
+             f"({label})")
     return out
 
 
@@ -733,8 +840,8 @@ def params_of(module):
 def training_phase(card, kernels, config=FLAGSHIP):
     """The DAOD step of ``config`` at full width through its entry points
     (see the module docstring). Returns the launch counts of the timed
-    steps, K2's numbers at the step's own launch shapes and those launches
-    (``RoiLaunches``)."""
+    steps, K2's and K1's numbers at the step's own launches and those
+    launches (``KernelLaunches``)."""
     import torch
 
     from aldi_tpu_torch.config import get_cfg
@@ -772,7 +879,7 @@ def training_phase(card, kernels, config=FLAGSHIP):
     start = params_of(state.student)
 
     t0 = time.perf_counter()
-    with RoiLaunches(det) as roi_launches:  # K2's launch shapes
+    with KernelLaunches(det) as recorded:  # K1's and K2's launches
         state, m = step(state, batches[0], draws[0])
         torch.cuda.synchronize()
     print(f"[train] {name} warm-up step: "
@@ -780,13 +887,19 @@ def training_phase(card, kernels, config=FLAGSHIP):
           f"(boxes per image, valid boxes per level p2..p5): " + "; ".join(
               f"{r['kind']} {tuple(r['boxes'].shape[:2])} "
               f"{torch.bincount(r['levels'][r['levels'] >= 0].long(), minlength=4).tolist()}"
-              for r in roi_launches.launches)
-          + f"; box-head calls {roi_launches.calls}, with levels that are "
+              for r in recorded.launches if r["kind"] != "match")
+          + "; its K1 launches (valid gt per image): " + "; ".join(
+              f"{r['site']} {r['valid'].sum(-1).tolist()}"
+              for r in recorded.launches if r["kind"] == "match")
+          + f"; box-head calls {recorded.calls}, with levels that are "
           f"not contiguous (its .contiguous() copies them before K2): "
-          + ("none" if not roi_launches.copies else "; ".join(
+          + ("none" if not recorded.copies else "; ".join(
               f"call {k + 1}: {n} levels, first {shape} strides {stride}, "
               f"copy {ms:.4f} ms" for k, n, shape, stride, ms
-              in roi_launches.copies)), flush=True)
+              in recorded.copies)), flush=True)
+    if recorded.copies:
+        fail(f"{name}: {len(recorded.copies)} box-head calls copy pyramid "
+             f"levels before K2 (a stream's features are not NHWC)")
 
     for k in kernels:
         k.launches = 0
@@ -856,16 +969,23 @@ def training_phase(card, kernels, config=FLAGSHIP):
         print(f"[train] {name} device busy share: not measured (the profiler "
               "saw no device events)")
     else:
-        busy, top = traced
+        busy, top, per_kernel = traced
         print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
               f"{med:.2f} ms median step, idle share "
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
               + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
               flush=True)
+        print(f"[train] {name}, traced step: layout conversions "
+              + "; ".join(
+                  f"{kind} {sum(n for k, (_, n) in per_kernel.items() if kind in k)}"
+                  f" launches, "
+                  f"{sum(ms for k, (ms, _) in per_kernel.items() if kind in k):.2f}"
+                  " ms" for kind in ("nchwToNhwcKernel", "nhwcToNchwKernel")),
+              flush=True)
     del state, batches, draws
     torch.cuda.empty_cache()
-    step_k2 = time_step_launches(name, roi_launches.launches)
-    return launches, step_k2, roi_launches.launches
+    step_kernels = time_step_launches(name, recorded.launches)
+    return launches, step_kernels, recorded.launches
 
 
 def moved(tree, device):
@@ -1105,8 +1225,9 @@ def staged_request(det, images, sizes):
 def device_busy(fn):
     """Trace one call of ``fn`` (a request or a step) with torch.profiler.
     Returns the device's busy time in ms (the union of its kernel and copy
-    intervals) and the six kernels with the most time (name, ms, calls), or
-    None when the trace holds no device events."""
+    intervals), the six kernels with the most time (name, ms, calls) and
+    {name: (ms, calls)} of every kernel, or None when the trace holds no
+    device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1131,7 +1252,7 @@ def device_busy(fn):
             ms, n = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
-    return busy_us / 1e3, [(k, ms, n) for k, (ms, n) in top]
+    return busy_us / 1e3, [(k, ms, n) for k, (ms, n) in top], per_kernel
 
 
 def serving_phase(card, config, kernels, numbers=None):
@@ -1209,7 +1330,7 @@ def serving_phase(card, config, kernels, numbers=None):
         print(f"[serving] {name} device busy share: not measured (the "
               "profiler saw no device events)")
     else:
-        busy, top = traced
+        busy, top, _ = traced
         print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
               f"of the {median:.2f} ms median request, idle share "
               f"{max(0.0, 1 - busy / median):.3f}; top kernels: "
@@ -1239,26 +1360,33 @@ def request_proposals(det, images, sizes):
     return feats, pboxes, box_levels(pboxes, pvalid, det.roi_strides), copied
 
 
-class RoiLaunches:
-    """While active, records every K2 forward and backward launch: copies
-    of its boxes and levels, its level shapes, channels, dtype and strides;
-    and, per call of the box head, the levels it hands to ``box_pooler``
-    that are not contiguous (the box head's ``.contiguous()`` copies them
-    before K2), with the shape and strides of the first and the time of
-    that copy on the card."""
+class KernelLaunches:
+    """While active, records every K2 forward and backward launch (copies
+    of its boxes and levels, its level shapes, channels, dtype and
+    strides) and every K1a launch (copies of its anchors, gt and flags and
+    its call site: the teacher's ``forward_teacher_ctx`` or a student
+    stream's ``forward_train``, which holds the teacher's pseudo-labels in
+    the distill stream; K1b follows each on the same inputs); and, per call of
+    the box head, the levels it hands to ``box_pooler`` that are not
+    contiguous (the box head's ``.contiguous()`` copies them before K2),
+    with the shape and strides of the first and the time of that copy on
+    the card."""
 
     def __init__(self, det):
         self.det = det
         self.launches = []
         self.calls = 0
         self.copies = []  # (call, levels, shape, strides, ms)
+        self.site = self.pseudo = None
 
     def __enter__(self):
+        from aldi_tpu_torch.ops.match_kernel import MatchIou
         from aldi_tpu_torch.ops.roi_align_kernel import (RoiAlignBwd,
                                                          RoiAlignFwd)
 
-        self.saved = (RoiAlignFwd.__call__, RoiAlignBwd.__call__)
-        fwd, bwd = self.saved
+        self.saved = (RoiAlignFwd.__call__, RoiAlignBwd.__call__,
+                      MatchIou.__call__)
+        fwd, bwd, match = self.saved
         rec = self.launches
 
         def fwd_call(kernel, features, boxes, levels, strides, output_size=7,
@@ -1281,7 +1409,34 @@ class RoiLaunches:
             return bwd(kernel, grad, boxes, levels, feat_shapes, feat_dtype,
                        strides, sampling_ratio)
 
+        def match_call(kernel, anchors, gt_boxes, gt_valid):
+            if self.site is None:
+                fail("a K1 call outside the teacher's and the streams' "
+                     "forward passes")
+            rec.append(dict(kind="match", anchors=anchors.clone(),
+                            gt=gt_boxes.clone(), valid=gt_valid.clone(),
+                            site=self.site))
+            return match(kernel, anchors, gt_boxes, gt_valid)
+
+        teacher_ctx, forward_train = (self.det.forward_teacher_ctx,
+                                      self.det.forward_train)
+
+        def teacher_call(*args, **kwargs):
+            self.site = "teacher distill anchors (pseudo-labels)"
+            out = teacher_ctx(*args, **kwargs)
+            self.site, self.pseudo = None, out[1]
+            return out
+
+        def train_call(module, images, sizes, gt, draws):
+            self.site = ("distill stream RPN loss (pseudo-labels)"
+                         if gt is self.pseudo else
+                         "strong stream RPN loss (labeled gt)")
+            out = forward_train(module, images, sizes, gt, draws)
+            self.site = None
+            return out
+
         RoiAlignFwd.__call__, RoiAlignBwd.__call__ = fwd_call, bwd_call
+        MatchIou.__call__ = match_call
         box_head = self.det.box_head
 
         def head(features, *args, **kwargs):
@@ -1296,27 +1451,40 @@ class RoiLaunches:
             return box_head(features, *args, **kwargs)
 
         self.det.box_head = head
+        self.det.forward_teacher_ctx = teacher_call
+        self.det.forward_train = train_call
         return self
 
     def __exit__(self, *exc):
+        from aldi_tpu_torch.ops.match_kernel import MatchIou
         from aldi_tpu_torch.ops.roi_align_kernel import (RoiAlignBwd,
                                                          RoiAlignFwd)
 
-        RoiAlignFwd.__call__, RoiAlignBwd.__call__ = self.saved
-        del self.det.box_head
+        (RoiAlignFwd.__call__, RoiAlignBwd.__call__,
+         MatchIou.__call__) = self.saved
+        del (self.det.box_head, self.det.forward_teacher_ctx,
+             self.det.forward_train)
 
 
 def time_step_launches(model, launches, seed=40, plain_iters=1,
                        backward=None):
     """K2's forward and backward (``backward``: as for ``check_roi_bwd``)
-    at one training step's own launch shapes: each recorded launch's real
-    boxes and levels with seeded random features or cotangent of its
-    shapes, held against the plain version and timed. Returns the
-    per-launch numbers."""
+    and K1a/K1b at one training step's own launches: each recorded K2
+    launch's real boxes and levels with seeded random features or cotangent
+    of its shapes, each K1 call's own anchors and gt, held against the plain
+    versions and timed. Returns the per-launch numbers."""
     import torch
 
-    out, total = [], {"forward": 0.0, "backward": 0.0}
+    out, total = [], {"forward": 0.0, "backward": 0.0, "match": 0.0}
     for i, rec in enumerate(launches):
+        if rec["kind"] == "match":  # K1a and K1b on this call's inputs
+            r = check_match(f"{model} step, {rec['site']}", rec["anchors"],
+                            rec["gt"], rec["valid"], plain_iters=plain_iters,
+                            kernel_iters=10)
+            total["match"] += sum(v["ms"] for v in r.values())
+            out.append(dict(kind="match", site=rec["site"],
+                            valid_gt=rec["valid"].sum(-1).tolist(), **r))
+            continue
         if rec["strides"] != ROI_STRIDES or rec["out"] != 7:
             fail(f"{model}: a K2 launch with strides {rec['strides']} and "
                  f"output {rec['out']}, not the pooler's")
@@ -1338,9 +1506,10 @@ def time_step_launches(model, launches, seed=40, plain_iters=1,
                               kernel_iters=10, backward=backward)
         total[rec["kind"]] += r["ms"]
         out.append(dict(kind=rec["kind"], boxes=[b, p], **r))
-    print(f"[train] {model}: K2 at the step's own launch shapes, per step: "
-          + "; ".join(f"{k} {sum(o['kind'] == k for o in out)} launches, "
-                      f"{v:.4f} ms" for k, v in total.items()), flush=True)
+    print(f"[train] {model}: K2 and K1a + K1b at the step's own launches, "
+          "per step: " + "; ".join(
+              f"{k} {sum(o['kind'] == k for o in out)} launches, {v:.4f} ms"
+              for k, v in total.items()), flush=True)
     return out
 
 
@@ -1404,7 +1573,10 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(13)
     gt, _, gt_valid = synthetic_gt(gen, TRAIN_IMAGES, cfg.TPU.MAX_GT,
                                    (1024, 2048))
-    numbers = check_match(anchors, gt, gt_valid)
+    numbers = check_match("kernel phase, synthetic gt", anchors, gt, gt_valid)
+    check_match("worst case, every gt box covers the canvas", anchors,
+                *covering_gt(gen, TRAIN_IMAGES, cfg.TPU.MAX_GT, (1024, 2048)),
+                plain_iters=1)
     del anchors, gt, gt_valid
     for dtype, seed in ((torch.float32, 14), (torch.bfloat16, 15)):
         numbers["roi_align_bwd"] = check_roi_bwd(
@@ -1436,11 +1608,11 @@ def main():
         tiny_reference_check(VIT_ALDI)
 
     # -- 4. training phase: each DAOD step through its entry points
-    launches, step_k2, _ = training_phase(card, flagship_kernels)
+    launches, step_kernels, _ = training_phase(card, flagship_kernels)
     torch.cuda.empty_cache()
     tiny_train_reference_check()
-    vit_launches, vit_step_k2, _ = training_phase(card, vit_kernels,
-                                                  VIT_ALDI)
+    vit_launches, vit_step_kernels, _ = training_phase(card, vit_kernels,
+                                                       VIT_ALDI)
     torch.cuda.empty_cache()
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
@@ -1465,15 +1637,20 @@ def main():
         entry["launches_by_path"] = {path: c[k.name]
                                      for path, c in by_path.items()
                                      if k.name in c}
-        kind = {"roi_align_fwd": "forward",
-                "roi_align_bwd": "backward"}.get(k.name)
-        if kind:  # K2 at each training step's own launch shapes
+        kind = {"roi_align_fwd": "forward", "roi_align_bwd": "backward",
+                "match_iou": "match", "low_quality_mask": "match"}.get(k.name)
+        if kind:  # K2 and K1 at each training step's own launches
+            keys = ("ms", "bound_ms", "plain_ms", "max_abs_err")
             entry["step_launches"] = {
-                f"{m} training": [{key: r[key] for key in (
-                    "boxes", "ms", "bound_ms", "plain_ms", "max_abs_err")}
+                f"{m} training": [
+                    {"boxes": r["boxes"], **{key: r[key] for key in keys}}
+                    if kind != "match" else
+                    {"site": r["site"], "valid_gt": r["valid_gt"],
+                     **{key: r[k.name][key]
+                        for key in keys + ("kernel_ms", "dense_bound_ms")}}
                     for r in rs if r["kind"] == kind]
-                for m, rs in (("R50-FPN", step_k2),
-                              ("ViTDet-B", vit_step_k2))}
+                for m, rs in (("R50-FPN", step_kernels),
+                              ("ViTDet-B", vit_step_kernels))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

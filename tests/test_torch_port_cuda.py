@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from aldi_tpu_torch.data.strong_aug import strong_aug_draws, strong_augment
 from aldi_tpu_torch.ops import _build
 from aldi_tpu_torch.ops.anchors import AnchorGenerator
 from aldi_tpu_torch.ops.flash_attn import (attn_delta, flash_attention_relpos,
@@ -35,6 +36,8 @@ from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 from chip_smoke import (VIT_ALDI, attn_inputs, check_attn,
                         tiny_reference_check,
                         tiny_train_reference_check, tiny_vit)
+from torch_port_match_cases import CASES as MATCH_CASES
+from torch_port_match_cases import match_case
 
 STRIDES = [4, 8, 16, 32]
 pytestmark = pytest.mark.cuda
@@ -121,12 +124,16 @@ def _gt(card, b, m, seed, canvas=(256, 512)):
             torch.from_numpy(valid).to(card))
 
 
-@pytest.mark.parametrize("m", [1, 100, 256])
-def test_match_kernels_equal_plain(card, m):
+@pytest.mark.parametrize("case", MATCH_CASES)
+def test_match_kernels_equal_plain(card, case):
     """K1a/K1b against their plain versions: exactly equal vals, idx, per-gt
-    best, low-quality mask and labels, for 1 gt slot up to the cap."""
+    best, low-quality mask and labels, for 1 gt slot up to the cap and the
+    adversarial gt of ``tests/torch_port_match_cases.py`` (touching edges,
+    a box over the canvas, ties, zero-area and off-canvas boxes, an invalid
+    first slot, an image without valid slots)."""
     anchors = _anchors(card)
-    gt, valid = _gt(card, 3, m, seed=m)
+    gt, valid = (torch.from_numpy(x).to(card)
+                 for x in match_case(case, anchors.cpu().numpy()))
     before = (match_iou.launches, low_quality_mask.launches)
     vals, idx, best = match_iou(anchors, gt, valid)
     lowq = low_quality_mask(anchors, gt, valid, best)
@@ -143,6 +150,22 @@ def test_match_kernels_equal_plain(card, m):
                       (labels[1], w_labels[1])):
         assert torch.equal(got, want)
     assert lowq.any() and (labels[1] == 1).any()
+
+
+@pytest.mark.parametrize("erase,mic", [(True, False), (False, True)])
+def test_strong_augment_on_card_returns_nhwc(card, erase, mic):
+    """Each stream's strong view (the labeled stream's with erasing, the
+    unlabeled stream's with MIC), blurred on half the images, returns
+    NHWC-contiguous images on the card, so the backbone's convolutions read
+    them channels-last."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    img = torch.rand((4, 64, 96, 3), generator=gen, device=card) * 255.0
+    draws = strong_aug_draws(gen, 4, (64, 96), erase, mic, 16)
+    draws["do_blur"] = torch.tensor([True, False, True, False], device=card)
+    sizes = torch.tensor([[64, 96], [50, 90], [64, 70], [40, 40]],
+                         dtype=torch.int32, device=card)
+    out = strong_augment(img, sizes, draws, erase, mic, 0.5)
+    assert out.shape == img.shape and out.is_contiguous(), out.stride()
 
 
 def test_match_kernel_raises_above_its_cap(card):
