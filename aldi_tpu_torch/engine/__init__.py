@@ -1,1 +1,2 @@
-"""Serving export and weight conversion of the port."""
+"""The port's training step, trainer, evaluation, checkpoints, serving
+entry point and weight conversion."""

@@ -23,8 +23,19 @@ The same function converts a JAX ``TrainState``'s EMA teacher, given
 ``{"params": state.ema_params, "frozen": state.frozen}`` (the teacher
 shares the student's FrozenBN statistics); ``engine.train_step.
 create_train_state(cfg, det, weights, teacher_weights)`` takes both.
+
+Reference checkpoints (``aldi_tpu/engine/checkpoint_convert.py:19-33,
+329-397,419-482`` for the R-CNN and ViTDet families): a torch ``.pth`` or a
+detectron2 zoo ``.pkl`` already carries the port's (detectron2's) names, so
+``reference_state_dict_to_port`` converts only the layouts the port keeps
+differently: the box head's ``fc1`` input from detectron2's channel-major
+(c, h, w) flattening to (h, w, c), and a ViT ``pos_embed`` stored as tokens
+[1, p*p (+1 class token), D] to the grid [1, p, p, D]. Loading is
+non-strict, as detectron2's: missing, unused and shape-mismatched keys are
+logged and skipped.
 """
 
+import pickle
 from typing import Dict
 
 import numpy as np
@@ -128,4 +139,92 @@ def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             elif path[-2:] == ("qkv", "bias"):
                 a = a.reshape(-1)  # [3, nh, hd] -> [3C]
             out[_port_name(path)] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+# ------------------------------------------------------ reference files
+def load_torch_state_dict(path: str, logger=None):
+    """A torch checkpoint file as saved (a state dict, ``{model, ema,
+    ...}``, ...), read with ``weights_only=True``: tensors and plain
+    containers only. A file that holds other objects (a reference ``.pth``
+    with pickled extras, a whole module) fails that and is then unpickled
+    in full, with a log line: load such files only from sources you
+    trust."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        if logger:
+            logger.warning(f"{path} holds more than tensors "
+                           f"({str(e).splitlines()[0]}); unpickling it in "
+                           f"full")
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_d2_pkl_state_dict(path: str) -> dict:
+    """A detectron2 model-zoo ``.pkl``: ``{"model": {name: ndarray}, ...}``
+    (or the bare dict)."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    return data["model"] if "model" in data else data
+
+
+def _reference_layout(name: str, t: torch.Tensor,
+                      target: torch.Tensor) -> torch.Tensor:
+    """One reference tensor in the port's layout for ``name``."""
+    if name.endswith("pos_embed") and t.ndim == 3 and target.ndim == 4:
+        # [1, tokens (+ class token), D] -> the grid [1, p, p, D]; the
+        # class token is never used downstream
+        p = target.shape[1] * target.shape[2]
+        if t.shape[1] == p + 1:
+            t = t[:, 1:]
+        if t.shape[1] == p:
+            t = t.reshape(target.shape)
+        return t
+    if (name == "roi_heads.box_head.fc1.weight" and t.ndim == 2
+            and t.shape == target.shape and t.shape[1] % 49 == 0):
+        # the input of the first FC: detectron2 flattens the 7x7 pooled
+        # (or conv) features channel-major, the port (h, w, c)
+        out_dim, in_dim = t.shape
+        t = (t.reshape(out_dim, in_dim // 49, 7, 7).permute(0, 2, 3, 1)
+             .reshape(out_dim, in_dim))
+    return t
+
+
+def reference_state_dict_to_port(sd: dict, target: Dict[str, torch.Tensor],
+                                 logger=None, convert_layouts=True
+                                 ) -> Dict[str, torch.Tensor]:
+    """A detectron2-named state dict (tensors or numpy arrays) -> a state
+    dict over ``target``'s keys (the port module's ``state_dict()``): each
+    key the reference has, in the port's layout (``convert_layouts=False``:
+    already in it, as in the port's own checkpoints) and ``target``'s
+    dtype; each other key keeps ``target``'s tensor. Missing, unused and
+    shape-mismatched keys are logged and skipped."""
+    out, used, missing, mismatched = {}, set(), [], []
+    for name, want in target.items():
+        if name not in sd:
+            missing.append(name)
+            out[name] = want
+            continue
+        v = sd[name]
+        t = (v.detach().cpu() if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(v)))
+        if convert_layouts:
+            t = _reference_layout(name, t, want)
+        if t.shape != want.shape:
+            mismatched.append(f"{name}: ckpt {tuple(t.shape)} vs model "
+                              f"{tuple(want.shape)}")
+            out[name] = want
+            continue
+        out[name] = t.to(want.dtype).contiguous()
+        used.add(name)
+    if logger:
+        unused = [k for k in sd if k not in used]
+        if missing:
+            logger.info(f"checkpoint: {len(missing)} model keys not found "
+                        f"in checkpoint (first 10: {missing[:10]})")
+        if mismatched:
+            logger.info(f"checkpoint: shape mismatches skipped: {mismatched}")
+        if unused:
+            logger.info(f"checkpoint: {len(unused)} checkpoint keys unused "
+                        f"(first 10: {unused[:10]})")
     return out

@@ -9,7 +9,12 @@ labeled and unlabeled batches derived on the device; the student's streams
 pseudo-labels), each weighted ``n_s / n_eff`` as the reference's gradient
 accumulation weighs them; one ``backward()`` per stream
 (``SOLVER.BACKWARD_AT_END: false``) or one for their sum (true); the
-optimizer step.
+optimizer step. With ``TPU.GRAD_ACCUM = k`` (``:334-378``) each stream
+splits into k equal chunks after the teacher pass and the strong views
+(computed once for the whole batch, as ``micro_full`` is): each chunk runs
+forward and backward on the same parameters with its own draws, its
+gradients are summed into ``.grad`` scaled by 1/k, the losses are averaged
+over the chunks, and the optimizer steps once.
 
 The JAX step draws from ``jax.random``; here ``draw_step`` makes every draw
 of a step up front from a ``torch.Generator`` (static shapes: the canvas's
@@ -98,15 +103,22 @@ def create_train_state(cfg, detector, weights=None,
                       schedule=build_lr_schedule(cfg))
 
 
+def grad_accum(cfg) -> int:
+    """TPU.GRAD_ACCUM: the number of chunks each stream splits into."""
+    return max(int(cfg.TPU.GRAD_ACCUM), 1)
+
+
 def draw_step(gen: torch.Generator, detector, n_labeled: int,
               n_unlabeled: int) -> dict:
     """Every random draw of one step, made from ``gen`` on its device and
     returned on the detector's: per student stream the anchor sampler's and
     the ROI sampler's draws (and, for a ViT backbone, the drop-path keep
     masks), the teacher's anchor sampler's draws, and the strong
-    augmentation's draws per batch."""
+    augmentation's draws per batch. With ``TPU.GRAD_ACCUM = k > 1`` each
+    student stream's entry is a list of k chunks' draws."""
     cfg = detector.cfg
     s = stream_flags(cfg)
+    accum = grad_accum(cfg)
     n_anchors = detector.anchors_cat.shape[0]
     rpn = detector.rpn_params
     k_rpn = min(rpn["batch_size_per_image"], n_anchors)
@@ -124,7 +136,7 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
         keep = torch.tensor([1.0 - blk.drop_path for blk in net.blocks],
                             device=gen.device)
 
-    def student(b):
+    def chunk(b):
         out = {"rpn": anchors(b),
                "roi": sample_proposals_draws(gen, (b,), n_cand)}
         if net is not None:
@@ -132,6 +144,11 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
             out["drop"] = torch.rand((2, len(keep), b), generator=gen,
                                      device=gen.device) < keep[:, None]
         return out
+
+    def student(b):
+        if accum == 1:
+            return chunk(b)
+        return [chunk(b // accum) for _ in range(accum)]
 
     out = {}
     if s.weak:
@@ -152,10 +169,31 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
 
 
 def to_device(tree, device):
-    """A nested dict of tensors moved to ``device``."""
+    """A nested dict (or list) of tensors moved to ``device``."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def _chunk(tree, i: int, k: int):
+    """Chunk i of k along the batch axis of every tensor of a nested dict,
+    list or ``Instances``."""
+    if tree is None or k == 1:
+        return tree
+    if isinstance(tree, dict):
+        return {key: _chunk(v, i, k) for key, v in tree.items()}
+    if isinstance(tree, list):
+        return [_chunk(v, i, k) for v in tree]
+    if isinstance(tree, Instances):
+        return Instances(*(_chunk(getattr(tree, f), i, k) for f in
+                           ("boxes", "classes", "valid", "scores")))
+    b = tree.shape[0]
+    if b % k:
+        raise ValueError(
+            f"batch dim {b} not divisible by TPU.GRAD_ACCUM={k}")
+    return tree[i * (b // k):(i + 1) * (b // k)]
 
 
 def make_train_step(cfg, detector):
@@ -164,11 +202,8 @@ def make_train_step(cfg, detector):
     the JAX package's keys (``loss_*_source_strong``, ``loss_*_distill``,
     ...), ``total_loss`` and, with distillation, ``num_pseudo_labels``."""
     check_trainable(cfg)
-    if int(cfg.TPU.GRAD_ACCUM) > 1:
-        raise NotImplementedError(
-            f"TPU.GRAD_ACCUM={cfg.TPU.GRAD_ACCUM} is not ported yet: "
-            "ROADMAP.md lists it under slice 3")
     s = stream_flags(cfg)
+    accum = grad_accum(cfg)
     active = [n for n, on in (("weak", s.weak), ("strong", s.strong),
                               ("distill", s.distill)) if on]
     threshold = cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD
@@ -217,24 +252,34 @@ def make_train_step(cfg, detector):
         done("strong views")
         gt = (Instances(lab["boxes"], lab["classes"], lab["valid"])
               if lab is not None else None)
+        full = {"lab": lab, "gt": gt, "ls": ls_images if s.strong else None,
+                "uw": uw if s.distill else None,
+                "us": us_images if s.distill else None,
+                "pseudo": pseudo, "ctx": ctx}
 
         def weighted(losses, suffix, weight):
             return {f"{k}_{suffix}": v * weight for k, v in losses.items()}
 
-        def stream(name):
+        def stream(name, m, d):
+            """Stream ``name``'s weighted losses on chunk ``m`` with its
+            draws ``d``."""
             if name == "weak":
                 losses, _ = detector.forward_train(
-                    student, lab["image"], lab["sizes"], gt, draws["weak"])
+                    student, m["lab"]["image"], m["lab"]["sizes"], m["gt"],
+                    d["weak"])
                 return weighted(losses, "source_weak", n_lw / n_eff)
             if name == "strong":
                 losses, _ = detector.forward_train(
-                    student, ls_images, lab["sizes"], gt, draws["strong"])
+                    student, m["ls"], m["lab"]["sizes"], m["gt"],
+                    d["strong"])
                 return weighted(losses, "source_strong", n_ls / n_eff)
             std, s_aux = detector.forward_train(
-                student, us_images, uw["sizes"], pseudo, draws["distill"])
+                student, m["us"], m["uw"]["sizes"], m["pseudo"],
+                d["distill"])
             losses = gate_hard_losses(std, cfg)
             if s.soft:
-                losses.update(detector.distill_losses(teacher, ctx, s_aux))
+                losses.update(detector.distill_losses(teacher, m["ctx"],
+                                                      s_aux))
             return weighted(losses, "distill", n_uw / n_eff)
 
         def total_of(losses):
@@ -243,21 +288,32 @@ def make_train_step(cfg, detector):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss_dict = {}
-        if cfg.SOLVER.BACKWARD_AT_END or len(active) <= 1:
-            for name in active:
-                loss_dict.update(stream(name))
-            total = total_of(loss_dict)
-            total.backward()
-            done("streams fwd + one bwd")
-        else:  # one backward per stream: peak memory of one stream
-            total = 0.0
-            for name in active:
-                losses = stream(name)
-                t_s = total_of(losses)
-                t_s.backward()
-                total = total + t_s.detach()
-                loss_dict.update(losses)
-                done(f"{name} stream fwd+bwd")
+        total = 0.0
+        for c in range(accum):
+            m = _chunk(full, c, accum)
+            d = draws if accum == 1 else {
+                n: draws[n][c] for n in active}
+            at = f" (chunk {c + 1} of {accum})" if accum > 1 else ""
+            if cfg.SOLVER.BACKWARD_AT_END or len(active) <= 1:
+                losses = {}
+                for name in active:
+                    losses.update(stream(name, m, d))
+                t_c = total_of(losses)
+                (t_c / accum).backward()
+                done("streams fwd + one bwd" + at)
+            else:  # one backward per stream: peak memory of one stream
+                losses, t_c = {}, 0.0
+                for name in active:
+                    l_s = stream(name, m, d)
+                    t_s = total_of(l_s)
+                    (t_s / accum).backward()
+                    t_c = t_c + t_s.detach()
+                    losses.update(l_s)
+                    done(f"{name} stream fwd+bwd" + at)
+            total = total + t_c.detach() / accum
+            for k, v in losses.items():
+                v = v.detach() / accum
+                loss_dict[k] = loss_dict[k] + v if k in loss_dict else v
         params = [p for g in opt.param_groups for p in g["params"]]
         clip_gradients(cfg, params)
         set_lr(opt, state.schedule(state.step))
@@ -265,8 +321,8 @@ def make_train_step(cfg, detector):
         state.step += 1
         done("optimizer")
 
-        metrics.update({k: v.detach() for k, v in loss_dict.items()})
-        metrics["total_loss"] = total.detach()
+        metrics.update(loss_dict)
+        metrics["total_loss"] = total
         return state, metrics
 
     return train_step

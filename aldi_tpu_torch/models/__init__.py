@@ -3,9 +3,10 @@
 from .rcnn import RCNN, RCNNDetector  # noqa: F401
 
 
-def build_detector(cfg, device=None):
+def build_detector(cfg, device=None, seed=0):
     """cfg -> detector orchestrator on ``device`` (``cuda`` by default;
-    raises without a GPU unless ``device="cpu"`` is passed)."""
+    raises without a GPU unless ``device="cpu"`` is passed), its weights
+    drawn from ``seed``."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name != "GeneralizedRCNN":
         raise NotImplementedError(
@@ -15,4 +16,4 @@ def build_detector(cfg, device=None):
         raise NotImplementedError(
             "MODEL.LOAD_PROPOSALS is not ported yet: ROADMAP.md lists it "
             "under 'Slices still to port'")
-    return RCNNDetector(cfg, device)
+    return RCNNDetector(cfg, device, seed)

@@ -109,9 +109,10 @@ def check_trainable(cfg):
 
 class RCNNDetector:
     """Static config + orchestration around the ``RCNN`` module, which
-    lives on ``device`` (``cuda`` unless the caller asks for another)."""
+    lives on ``device`` (``cuda`` unless the caller asks for another), its
+    weights drawn from ``seed`` (``init_variables``)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, seed=0):
         _check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -150,7 +151,7 @@ class RCNNDetector:
             grid=(self.canvas[0] // 16, self.canvas[1] // 16),
             use_act_checkpoint=cfg.VIT.USE_ACT_CHECKPOINT,
         ).eval()
-        self.init_variables(seed=0)
+        self.init_variables(seed)
 
         rpn = cfg.MODEL.RPN
         self.rpn_box_reg_weights = tuple(rpn.BBOX_REG_WEIGHTS)
@@ -363,17 +364,20 @@ class RCNNDetector:
     # ----------------------------------------------------------- inference
     @torch.inference_mode()
     def forward_inference(self, images, image_sizes,
-                          precomputed: Optional[dict] = None):
+                          precomputed: Optional[dict] = None, module=None):
         """Detection inference on the canvas (no rescaling to original image
-        space). images [B, H, W, 3] float in 0..255, image_sizes [B, 2]
-        (h, w), both on the detector's device. Returns (boxes [B, D, 4],
-        scores [B, D], classes [B, D] int32, valid [B, D])."""
+        space). images [B, H, W, 3] in 0..255 (float or uint8),
+        image_sizes [B, 2] (h, w), both on the detector's device;
+        ``module``: the RCNN to run (the EMA teacher, say), the detector's
+        own by default. Returns (boxes [B, D, 4], scores [B, D], classes
+        [B, D] int32, valid [B, D])."""
         if precomputed is not None:
             raise NotImplementedError(f"MODEL.LOAD_PROPOSALS {_NOT_PORTED}")
-        feats = self.backbone(self.preprocess(images))
-        logits, deltas = self.rpn_head(feats)
+        feats = self.backbone(self.preprocess(images), module)
+        logits, deltas = self.rpn_head(feats, module)
         pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes)
-        cls_logits, box_deltas, _ = self.box_head(feats, pboxes, pvalid)
+        cls_logits, box_deltas, _ = self.box_head(feats, pboxes, pvalid,
+                                                  module)
         r = self.cfg.MODEL.ROI_HEADS
         return fast_rcnn_inference(
             pboxes, pvalid, cls_logits, box_deltas, image_sizes,

@@ -14,7 +14,7 @@ from torch import nn
 from ..ops import boxes as box_ops
 from ..ops.losses import smooth_l1, softmax_cross_entropy
 from ..ops.matcher import match, sample_fixed_indices, subsample_labels
-from ..ops.nms import batched_nms_keep_mask
+from ..ops.nms import batched_nms_keep_mask, top_k
 from ..ops.roi_align import roi_align_batched
 from .layers import Conv2d, ConvNorm, Linear
 
@@ -200,15 +200,14 @@ def fast_rcnn_inference(
 
     k = min(nms_candidates, n * num_classes)
     neg_inf = torch.full_like(flat_scores, -torch.inf)
-    vals, idx = torch.topk(torch.where(flat_valid, flat_scores, neg_inf), k,
-                           dim=1)
+    vals, idx = top_k(torch.where(flat_valid, flat_scores, neg_inf), k)
     bx = torch.gather(flat_boxes, 1, idx[..., None].expand(-1, -1, 4))
     cl = torch.gather(flat_cls, 1, idx)
     vl = torch.gather(flat_valid, 1, idx) & torch.isfinite(vals)
     keep = batched_nms_keep_mask(bx, vals, cl, vl, nms_thresh) & vl
-    final_scores, order = torch.topk(
+    final_scores, order = top_k(
         torch.where(keep, vals, torch.full_like(vals, -torch.inf)),
-        topk_per_image, dim=1)
+        topk_per_image)
     return (torch.gather(bx, 1, order[..., None].expand(-1, -1, 4)),
             final_scores, torch.gather(cl, 1, order),
             torch.isfinite(final_scores))

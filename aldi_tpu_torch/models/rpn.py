@@ -18,7 +18,7 @@ from ..ops import boxes as box_ops
 from ..ops.losses import bce_with_logits, smooth_l1
 from ..ops.match_kernel import match_boxes
 from ..ops.matcher import subsample_indices
-from ..ops.nms import nms_keep_mask, top_k_by_score
+from ..ops.nms import nms_keep_mask, top_k, top_k_by_score
 from .layers import Conv2d
 
 
@@ -133,7 +133,7 @@ def generate_proposals(
     lvl_boxes, lvl_scores, lvl_valid = [], [], []
     for lg, dl, an in zip(logits, deltas, anchors):
         k = min(pre_nms_topk, lg.shape[1])
-        s, idx = torch.topk(lg.float(), k, dim=1)  # [B, k]
+        s, idx = top_k(lg.float(), k)  # [B, k]
         d = torch.gather(dl, 1, idx[..., None].expand(-1, -1, 4))
         bx = box_ops.decode_deltas(d.float(), an[idx], box_reg_weights)
         bx = box_ops.clip_boxes(bx, (sizes[:, 0, None], sizes[:, 1, None]))

@@ -15,6 +15,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .nms import top_k
+
 KEY_BITS = 30  # the JAX samplers rank by (32-bit random bits) >> 2
 _BIG = 0x7FFFFFFF  # sentinel above every key: "not in the mask"
 
@@ -62,12 +64,6 @@ def topk_smallest_with_idx(vals: torch.Tensor, k: int):
     return (top >> 32).to(vals.dtype), top & 0xFFFFFFFF
 
 
-def _top_desc(score: torch.Tensor, k: int):
-    """The k largest along the last dim, the lower index first on ties."""
-    v, i = torch.sort(score, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 def subsample_indices(labels: torch.Tensor, num_samples: int,
                       positive_fraction: float, bg_label: int,
                       draws: dict):
@@ -106,7 +102,7 @@ def subsample_indices(labels: torch.Tensor, num_samples: int,
     score = (cand_pos.to(torch.float32) * 4.0
              + cand_ok.to(torch.float32) * 2.0 + draws["tie"])
     k_fin = min(num_samples, cand_idx.shape[-1])
-    svals, order = _top_desc(score, k_fin)
+    svals, order = top_k(score, k_fin)
     out_idx = torch.gather(cand_idx, -1, order)
     out_ok, out_pos = svals >= 2.0, svals >= 4.0
     pad = num_samples - k_fin
@@ -156,7 +152,7 @@ def sample_fixed_indices(sampled_pos: torch.Tensor,
     invalid tail."""
     score = (sampled_pos.to(torch.float32) * 4.0
              + sampled_neg.to(torch.float32) * 2.0 + fill)
-    vals, idx = _top_desc(score, k)
+    vals, idx = top_k(score, k)
     return idx, vals >= 2.0, vals >= 4.0
 
 

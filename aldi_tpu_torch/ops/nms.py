@@ -65,13 +65,23 @@ def batched_nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     return nms_keep_mask(shifted, scores, valid, iou_threshold)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """The k largest values along the last dim and their indices, sorted,
+    the lower index first among equal values, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` leaves the order of ties, and so which of them
+    make the cut, unspecified: flat image regions, the canvas's padding
+    among them, give exactly tied logits)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
 def top_k_by_score(boxes: torch.Tensor, scores: torch.Tensor,
                    valid: torch.Tensor, k: int):
     """Top-k rows by score among valid ones, over the second-last axis of
     boxes [..., N, 4]. Returns (boxes [..., k, 4], scores [..., k],
     valid [..., k])."""
     s = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
-    vals, idx = torch.topk(s, k, dim=-1)
+    vals, idx = top_k(s, k)
     top_boxes = torch.gather(
         boxes, -2, idx[..., None].expand(idx.shape + (4,)))
     return (top_boxes, vals,

@@ -59,7 +59,33 @@ failure exits non-zero:
    with the level shapes; K1: each call's anchors and gt, and its call
    site). Then a tiny float32 step on the card against the same step on
    the CPU.
-5. Print the card line, a ``{"kernels": [...]}`` line and, last,
+5. Trainer phase: the flagship through the training CLI,
+   ``aldi_tpu_torch/tools/train_net.py`` ``main`` with
+   ``configs/cityscapes/ALDI-Best-Cityscapes.yaml`` at the published
+   SOLVER.IMS_PER_BATCH 48 (24 labeled + 24 unlabeled images of
+   1024x2048 per step, bfloat16), on synthetic COCO splits written here
+   (PNGs of 2048x1024, 8 classes, 5-30 boxes of 16-512 px: train 48,
+   unlabeled 48, val 16) and a reference-format ``.pth`` whose ``model``
+   and ``ema`` entries come from ``tests/torch_rcnn_oracle.py`` (pure
+   torch) with two seeds. First 4 iterations with a checkpoint every 2 and
+   an eval at 4, with the smallest TPU.GRAD_ACCUM that fits the card (1
+   first); checks: the student and the teacher started from the ``ema``
+   entry, finite losses, ``metrics.json`` with the JAX trainer's keys
+   (written every iteration here), ``model_0000002.pth`` and
+   ``model_0000004.pth``, a finite ``bbox/AP50`` and the best-AP50 map in
+   ``trainer_state.json``, K1a, K1b and K2 forward and backward launched
+   by the steps and K2 forward by the eval, and no box-head call of a step
+   copying a level. Then ``--resume`` to 6 (it must go on at 4 with the
+   saved weights) and ``--eval-only --resume``. Prints images/s per
+   iteration, data_time, peak memory, the TPU.GRAD_ACCUM used, eval
+   images/s and the checkpoint saves' times. Then ``--resume`` from 6 to
+   20 with TPU.PROFILE_DIR and the trainer's own write period: the
+   device's busy time and idle share in each traced iteration (16-18),
+   and where the host waited on the card. Last, K2's forward and backward
+   and K1a/K1b held against their plain versions and timed at each of
+   the first run's first step's own launches (24 + 24 images: their real
+   boxes, levels, anchors and gt), as in the training phase.
+6. Print the card line, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
@@ -679,7 +705,14 @@ def synthetic_request(gen, canvas):
 
 
 def seeded_weights(det, seed):
-    """A state dict for ``det`` drawn from ``seed`` on the CPU, conditioned
+    """``conditioned_weights`` for ``det``'s module."""
+    return conditioned_weights(det.module.state_dict(), seed)
+
+
+def conditioned_weights(state_dict, seed):
+    """A state dict with ``state_dict``'s names and shapes (detectron2's
+    names, as the port's modules and the torch oracle carry them) drawn
+    from ``seed`` on the CPU, conditioned
     so that a random network behaves like a trained one in the ways the
     serving path cares about: kernels with std gain/sqrt(fan_in), FrozenBN
     statistics near the identity and a small scale on each bottleneck's
@@ -696,7 +729,7 @@ def seeded_weights(det, seed):
     gains = {"stem.conv1": 1 / 64, "anchor_deltas": 0.1, "bbox_pred": 0.1,
              "cls_score": 3.0}
     out = {}
-    for name, t in det.module.state_dict().items():
+    for name, t in state_dict.items():
         mod, leaf = name.rsplit(".", 1)
         if leaf == "weight" and t.dim() > 1:
             g = next((v for k, v in gains.items() if mod.endswith(k)), 1.0)
@@ -1513,6 +1546,521 @@ def time_step_launches(model, launches, seed=40, plain_iters=1,
     return out
 
 
+def write_synthetic_coco(root, name, n, seed, num_classes=8,
+                         size=(1024, 2048), box_px=(16, 512)):
+    """``n`` PNG images of ``size`` (h, w) with 5-30 boxes of ``box_px``
+    sides of ``num_classes`` classes each (filled rectangles in class
+    colors on a smooth gradient) and their COCO json under ``root/name``,
+    written by 8 threads. Returns (json path, image dir)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = size
+    img_dir = os.path.join(root, name, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    colors = np.random.default_rng(0).integers(40, 256, (num_classes, 3))
+    ramp = (np.add.outer(np.arange(h) * 60 // h, np.arange(w) * 40 // w)
+            .astype(np.uint8)[..., None])
+
+    def one(i):
+        rng = np.random.default_rng((seed, i))
+        img = ramp + rng.integers(0, 60, 3).astype(np.uint8)
+        anns = []
+        for _ in range(int(rng.integers(5, 31))):
+            bw, bh = (int(x) for x in rng.integers(box_px[0],
+                                                   box_px[1] + 1, 2))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            c = int(rng.integers(0, num_classes))
+            img[y0:y0 + bh, x0:x0 + bw] = colors[c]
+            anns.append({"image_id": i + 1, "category_id": c + 1,
+                         "bbox": [x0, y0, bw, bh], "area": bw * bh,
+                         "iscrowd": 0})
+        Image.fromarray(img).save(os.path.join(img_dir, f"{i:04d}.png"),
+                                  compress_level=1)
+        return anns
+
+    with ThreadPoolExecutor(8) as pool:
+        per_image = list(pool.map(one, range(n)))
+    annotations = [dict(a, id=k + 1) for k, a in enumerate(
+        a for anns in per_image for a in anns)]
+    coco = {"images": [{"id": i + 1, "file_name": f"{i:04d}.png",
+                        "height": h, "width": w} for i in range(n)],
+            "annotations": annotations,
+            "categories": [{"id": c + 1, "name": f"class{c}"}
+                           for c in range(num_classes)]}
+    path = os.path.join(root, name, "annotations.json")
+    with open(path, "w") as f:
+        json.dump(coco, f)
+    return path, img_dir
+
+
+def reference_pth(path, num_classes):
+    """A reference ALDI ``.pth`` at ``path``: ``model`` and ``ema`` (keys
+    prefixed ``model.``) under detectron2's names, the state dicts of the
+    torch oracle's R50-FPN (``tests/torch_rcnn_oracle.py``) with weights
+    from seeds 1 and 2, conditioned as ``conditioned_weights`` conditions
+    them (the oracle's own ``randomize`` lets a random R50 reach losses in
+    the hundreds, and its training diverges within three steps). Returns
+    both state dicts."""
+    import importlib.util
+
+    import torch
+
+    # by its path: a package named ``tests`` elsewhere on the path would
+    # shadow the repository's directory
+    spec = importlib.util.spec_from_file_location(
+        "torch_rcnn_oracle", os.path.join(ROOT, "tests",
+                                          "torch_rcnn_oracle.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    model, ema = (conditioned_weights(oracle.build_r50_fpn_rcnn(
+        num_classes).state_dict(), seed) for seed in (1, 2))
+    torch.save({"model": model,
+                "ema": {f"model.{k}": v for k, v in ema.items()},
+                "iteration": 5000}, path)
+    return model, ema
+
+
+def equal_state(got, want):
+    """Names of ``want``'s tensors that ``got`` (a state dict) lacks or
+    holds with other values."""
+    return [k for k, v in want.items()
+            if k not in got or not torch_equal(got[k], v)]
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a.detach().cpu(), b.detach().cpu())
+
+
+class TrainerProbe:
+    """While active, watches the trainer that ``train_net.main`` builds:
+    after ``resume_or_load``, checks its student and teacher against
+    ``expect`` ({"student": state dict, "teacher": ..., "step": int}) and
+    keeps the trainer; counts kernel launches inside evaluations apart
+    from the rest (the steps); times each checkpoint save
+    (synchronized); checks every box-head call of a training step for
+    levels that are not contiguous (NHWC) before K2; and writes metrics
+    every iteration (``WRITE_PERIOD`` 1), so that each iteration's
+    ``images_per_sec`` and ``data_time`` are in ``metrics.json``. Each
+    step runs inside a ``STEP_MARK`` range of torch.profiler, and the
+    first step after ``reset(..., record=True)`` inside ``KernelLaunches``
+    (its K1 and K2 launches in ``recorded``)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.head_calls, self.copies, self.in_step = 0, [], False
+        self.recorded = None
+        self.reset(None)
+
+    def counts(self):
+        return {k.name: k.launches for k in self.kernels}
+
+    def reset(self, expect, record=False):
+        """Launch counts to 0 and the checks of the next run's
+        ``resume_or_load``; forgets the last trainer. With ``record``, the
+        next step's K1 and K2 launches are recorded."""
+        for k in self.kernels:
+            k.launches = 0
+        self.eval_launches = {k.name: 0 for k in self.kernels}
+        self.eval_images_per_sec, self.save_s = [], []
+        self.expect, self.trainer, self.record = expect, None, record
+
+    def step_launches(self):
+        """Launches since ``reset`` outside evaluations."""
+        return {k: n - self.eval_launches[k]
+                for k, n in self.counts().items()}
+
+    def __enter__(self):
+        import torch
+
+        import aldi_tpu_torch.engine.trainer as tm
+        from aldi_tpu_torch.engine.checkpoint import Checkpointer
+        from aldi_tpu_torch.models.rcnn import RCNNDetector
+
+        self.saved = (tm.WRITE_PERIOD, tm.inference_on_dataset,
+                      tm.make_train_step, tm.ALDITrainer.resume_or_load,
+                      Checkpointer.save, RCNNDetector.box_head)
+        (_, infer, make_step, resume_or_load, save, box_head) = self.saved
+
+        def probed_infer(*args, **kwargs):
+            before = self.counts()
+            out = infer(*args, **kwargs)
+            for k, n in self.counts().items():
+                self.eval_launches[k] += n - before[k]
+            self.eval_images_per_sec.append(out["images_per_sec"])
+            return out
+
+        def probed_make_step(cfg, det):
+            step = make_step(cfg, det)
+
+            def probed_step(*args, **kwargs):
+                self.in_step = True
+                try:
+                    if self.record:
+                        self.record = False
+                        with KernelLaunches(det) as self.recorded:
+                            return step(*args, **kwargs)
+                    with torch.profiler.record_function(STEP_MARK):
+                        return step(*args, **kwargs)
+                finally:
+                    self.in_step = False
+            return probed_step
+
+        def probed_resume_or_load(trainer, resume=False):
+            resume_or_load(trainer, resume)
+            self.trainer = trainer
+            if self.expect is not None:
+                st = trainer.state
+                bad = (equal_state(st.student.state_dict(),
+                                   self.expect["student"])
+                       + equal_state(st.teacher.state_dict(),
+                                     self.expect["teacher"]))
+                if bad or st.step != self.expect["step"]:
+                    fail(f"after resume_or_load (resume={resume}) the "
+                         f"trainer is at iteration {st.step}, not "
+                         f"{self.expect['step']}, or holds other weights "
+                         f"than expected: {bad[:5]}")
+
+        def probed_save(ckpt, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save(ckpt, *args, **kwargs)
+            self.save_s.append(time.perf_counter() - t0)
+            return out
+
+        def probed_head(det, features, *args, **kwargs):
+            if self.in_step:
+                strided = [f for f in features[:-1] if not f.is_contiguous()]
+                if strided:
+                    self.copies.append((self.head_calls, len(strided),
+                                        tuple(strided[0].shape),
+                                        strided[0].stride()))
+                self.head_calls += 1
+            return box_head(det, features, *args, **kwargs)
+
+        tm.WRITE_PERIOD = 1
+        tm.inference_on_dataset = probed_infer
+        tm.make_train_step = probed_make_step
+        tm.ALDITrainer.resume_or_load = probed_resume_or_load
+        Checkpointer.save = probed_save
+        RCNNDetector.box_head = probed_head
+        return self
+
+    def __exit__(self, *exc):
+        import aldi_tpu_torch.engine.trainer as tm
+        from aldi_tpu_torch.engine.checkpoint import Checkpointer
+        from aldi_tpu_torch.models.rcnn import RCNNDetector
+
+        (tm.WRITE_PERIOD, tm.inference_on_dataset, tm.make_train_step,
+         tm.ALDITrainer.resume_or_load, Checkpointer.save,
+         RCNNDetector.box_head) = self.saved
+
+
+STEP_MARK = "aldi trainer step"  # the probe's profiler range around a step
+
+
+def trace_iterations(path):
+    """The trainer's ``TPU.PROFILE_DIR`` trace (a Chrome trace of three
+    iterations) read per iteration: each from the start of its step's
+    ``STEP_MARK`` range to the next one's (the last to the trace's end),
+    with the device's busy time in it (the union of kernel, copy and set
+    intervals, clipped to the iteration) and the host's time inside CUDA
+    runtime calls of 1 ms or more (the host waiting on the card), keyed by
+    the call, the innermost operator around it and whether the step's
+    thread or another one (the prefetcher's) made it. Returns
+    ([(iteration ms, busy ms, {call: ms})], device events) or None when
+    the trace holds no device events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    span = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e)
+            for e in events]
+    device = sorted((a, b) for a, b, e in span
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    marks = [(a, e.get("tid")) for a, _, e in span
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == STEP_MARK]
+    if not device or not marks:
+        return None
+    starts, step_tid = sorted(a for a, _ in marks), marks[0][1]
+    ops = [(a, b, e) for a, b, e in span if e.get("cat") == "cpu_op"]
+
+    def around(a, b, tid):
+        inner = [(b2 - a2, e["name"]) for a2, b2, e in ops
+                 if e.get("tid") == tid and a2 <= a and b <= b2]
+        return min(inner)[1] if inner else "no operator"
+
+    end = max(b for _, b, _ in span)
+    out = []
+    for lo, hi in zip(starts, starts[1:] + [end]):
+        busy, last = 0.0, lo
+        for a, b in device:
+            a, b = max(a, last), min(b, hi)
+            if b > a:
+                busy += b - a
+                last = b
+        waits = {}
+        for a, b, e in span:
+            if (e.get("cat") == "cuda_runtime" and lo <= a < hi
+                    and b - a >= 1e3):
+                thread = ("step thread" if e.get("tid") == step_tid
+                          else "other thread")
+                key = f"{e['name']} in {around(a, b, e.get('tid'))} " \
+                      f"({thread})"
+                waits[key] = waits.get(key, 0.0) + (b - a) / 1e3
+        out.append(((hi - lo) / 1e3, busy / 1e3, waits))
+    return out, len(device)
+
+
+TRAINER_KEYS = {
+    "iteration", "total_loss", "num_pseudo_labels", "images_per_sec",
+    "data_time", "dispatch_time", "loss_rpn_cls_source_strong",
+    "loss_rpn_loc_source_strong", "loss_cls_source_strong",
+    "loss_box_reg_source_strong", "loss_rpn_cls_distill",
+    "loss_rpn_loc_distill", "loss_cls_distill", "loss_box_reg_distill",
+    "loss_obj_bce_distill", "loss_rpn_l1_distill", "loss_cls_ce_distill",
+    "loss_roih_l1_distill"}
+
+
+def trainer_phase(card, kernels):
+    """The flagship trained, checkpointed, resumed and evaluated through
+    ``aldi_tpu_torch/tools/train_net.py`` ``main`` at the published
+    SOLVER.IMS_PER_BATCH 48 (see the module docstring). Returns the launch
+    counts of the first run's training steps and of its evaluation, and
+    the first step's recorded K1 and K2 launches (``KernelLaunches``)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import aldi_tpu_torch.engine.trainer as tm
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.data.catalog import (DatasetCatalog,
+                                             register_coco_instances)
+    from aldi_tpu_torch.engine.checkpoint_convert import \
+        reference_state_dict_to_port
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.tools import train_net
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="aldi_smoke_trainer_")
+    try:
+        t0 = time.perf_counter()
+        names = {}
+        for split, n, seed in (("train", 48, 1), ("unlabeled", 48, 2),
+                               ("val", 16, 3)):
+            names[split] = f"smoke_{split}"
+            if names[split] not in DatasetCatalog:
+                register_coco_instances(names[split], {}, *write_synthetic_coco(
+                    tmp, names[split], n, seed))
+        weights = os.path.join(tmp, "reference.pth")
+        model_sd, ema_sd = reference_pth(weights, 8)
+        cfg = get_cfg()
+        cfg.merge_from_file(FLAGSHIP)
+        target = build_detector(cfg, device="cpu").module.state_dict()
+        from_ema = reference_state_dict_to_port(ema_sd, target)
+        if not equal_state(from_ema, reference_state_dict_to_port(model_sd,
+                                                                  target)):
+            fail("the reference .pth's model and ema entries are equal")
+        del model_sd, ema_sd, target
+        print(f"[trainer] synthetic COCO splits (train 48, unlabeled 48, val "
+              f"16 PNGs of 2048x1024, 8 classes, 5-30 boxes of 16-512 px) "
+              f"and a reference .pth written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        out = os.path.join(tmp, "out")
+
+        def main(*flags, **over):
+            opts = {"MODEL.WEIGHTS": weights,
+                    "DATASETS.TRAIN": f"('{names['train']}',)",
+                    "DATASETS.UNLABELED": f"('{names['unlabeled']}',)",
+                    "DATASETS.TEST": f"('{names['val']}',)",
+                    "SOLVER.MAX_ITER": 4, "SOLVER.CHECKPOINT_PERIOD": 2,
+                    "TEST.EVAL_PERIOD": 4, "OUTPUT_DIR": out, **over}
+            args = train_net.default_argument_parser().parse_args(
+                ["--config-file", FLAGSHIP, *flags]
+                + [str(x) for kv in opts.items() for x in kv])
+            return train_net.main(args)
+
+        def iterations():
+            with open(os.path.join(out, "metrics.json")) as f:
+                return [json.loads(line) for line in f]
+
+        with TrainerProbe(kernels) as probe:
+            # 1. from the reference .pth's EMA entry: 4 iterations, a
+            # checkpoint at 2 and 4, an eval at 4; the smallest
+            # TPU.GRAD_ACCUM that fits the card
+            for accum in (1, 2, 3, 4, 6):
+                shutil.rmtree(out, ignore_errors=True)
+                probe.reset({"student": from_ema, "teacher": from_ema,
+                             "step": 0}, record=True)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    results = main(**{"TPU.GRAD_ACCUM": accum})
+                    break
+                except torch.cuda.OutOfMemoryError as e:
+                    print(f"[trainer] 24 + 24 images with TPU.GRAD_ACCUM "
+                          f"{accum}: out of device memory ({e})", flush=True)
+                    probe.trainer = None
+                    release()
+            else:
+                fail("24 + 24 images do not fit the card at any "
+                     "TPU.GRAD_ACCUM up to 6")
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+            launches, eval_launches = probe.step_launches(), dict(
+                probe.eval_launches)
+            lines = iterations()
+            accum = probe.trainer.cfg.TPU.GRAD_ACCUM
+
+            if [m["iteration"] for m in lines] != [1, 2, 3, 4]:
+                fail(f"metrics.json holds iterations "
+                     f"{[m['iteration'] for m in lines]}, not 1-4")
+            for m in lines:
+                if set(m) != TRAINER_KEYS:
+                    fail(f"metrics.json keys differ from the JAX trainer's: "
+                         f"{sorted(set(m) ^ TRAINER_KEYS)}")
+                bad = [k for k, v in m.items() if not math.isfinite(v)]
+                if bad:
+                    fail(f"non-finite metrics at iteration "
+                         f"{m['iteration']}: {bad}")
+            for f in ("model_0000002.pth", "model_0000004.pth",
+                      "last_checkpoint", "config.yaml"):
+                if not os.path.exists(os.path.join(out, f)):
+                    fail(f"the trainer wrote no {f}")
+            ap50 = results.get(names["val"], {}).get("bbox/AP50")
+            if ap50 is None or not math.isfinite(ap50):
+                fail(f"the eval at iteration 4 gave no finite bbox/AP50: "
+                     f"{results}")
+            with open(os.path.join(out, "trainer_state.json")) as f:
+                state_json = json.load(f)
+            if state_json != {"best_ap50": {names["val"]: ap50}}:
+                fail(f"trainer_state.json holds {state_json}, not the "
+                     f"best-AP50 map")
+            for k in kernels:
+                if launches[k.name] == 0:
+                    fail(f"the trainer's steps never launched {k.name}")
+            if eval_launches["roi_align_fwd"] == 0:
+                fail("the trainer's eval never launched roi_align_fwd")
+            if probe.copies:
+                fail(f"{len(probe.copies)} box-head calls of the trainer's "
+                     f"steps copy pyramid levels before K2: {probe.copies}")
+            per_it = [m["images_per_sec"] for m in lines]
+            data_time = [m["data_time"] for m in lines]
+            print(f"[trainer] R50-FPN through train_net main, "
+                  f"SOLVER.IMS_PER_BATCH 48 (24 labeled + 24 unlabeled "
+                  f"images of 1024x2048, bfloat16), TPU.GRAD_ACCUM {accum}, "
+                  f"from the reference .pth's EMA entry: 4 iterations in "
+                  f"{wall:.2f} s (start, eval and checkpoints included); "
+                  f"images/s per iteration {fmt(per_it)} (median of "
+                  f"iterations 2-4 {median(per_it[1:]):.2f}); data_time s "
+                  f"{fmt(data_time, 4)} (median {median(data_time):.4f}); "
+                  f"dispatch_time s "
+                  f"{fmt([m['dispatch_time'] for m in lines], 3)}; peak "
+                  f"device memory {peak:.2f} GiB allocated, "
+                  f"{peak_reserved:.2f} GiB reserved; eval of 16 images "
+                  f"{probe.eval_images_per_sec[0]:.2f} images/s, bbox/AP50 "
+                  f"{ap50:.4f}; checkpoint saves s {fmt(probe.save_s, 3)}; "
+                  f"launches in the steps {launches}, in the eval "
+                  f"{eval_launches}; {probe.head_calls} box-head calls of "
+                  f"the steps checked, none copies a level; card {card}",
+                  flush=True)
+            print("[trainer] losses of iteration 4: " + json.dumps(
+                {k: round(v, 5) for k, v in lines[-1].items()
+                 if k.startswith(("loss", "total", "num"))}), flush=True)
+            saved = torch.load(os.path.join(out, "model_0000004.pth"),
+                               weights_only=True)
+            del results
+            probe.reset({"student": saved["model"], "teacher": {
+                k[len("model."):]: v for k, v in saved["ema"].items()},
+                "step": 4})
+            del saved
+            release()
+
+            # 2. --resume to 6: goes on at 4 from the saved state
+            main("--resume", **{"SOLVER.MAX_ITER": 6,
+                                "TPU.GRAD_ACCUM": accum})
+            lines = iterations()
+            if [m["iteration"] for m in lines][-2:] != [5, 6] or \
+                    not os.path.exists(os.path.join(out, "model_0000006.pth")):
+                fail("the resumed run did not go on from 4 to 6")
+            print(f"[trainer] --resume: went on at iteration 4 with the "
+                  f"saved student, teacher and step and ended at 6 "
+                  f"(model_0000006.pth); images/s "
+                  f"{fmt([m['images_per_sec'] for m in lines[-2:]])}",
+                  flush=True)
+            probe.reset(None)
+            release()
+
+            # 3. --eval-only --resume: the teacher at iteration 6
+            ap = main("--eval-only", "--resume",
+                      **{"SOLVER.MAX_ITER": 6})[names["val"]]
+            if not math.isfinite(ap["bbox/AP50"]):
+                fail(f"--eval-only gave {ap}")
+            print(f"[trainer] --eval-only --resume (the teacher at "
+                  f"iteration 6): {json.dumps(ap)}", flush=True)
+            probe.reset(None)
+            release()
+
+            # 4. --resume from 6 to 20 with TPU.PROFILE_DIR (iterations
+            # 16-18 traced), the trainer's own WRITE_PERIOD, no eval. Rate
+            # 0: the published rate takes these seeded weights to a NaN
+            # loss within 20 iterations; the steps do the same work
+            trace_dir = os.path.join(tmp, "trace")
+            tm.WRITE_PERIOD = probe.saved[0]
+            t0 = time.perf_counter()
+            main("--resume", **{"SOLVER.MAX_ITER": 20,
+                                "TPU.GRAD_ACCUM": accum,
+                                "TEST.EVAL_PERIOD": 0,
+                                "SOLVER.CHECKPOINT_PERIOD": 0,
+                                "SOLVER.BASE_LR": 0.0,
+                                "TPU.PROFILE_DIR": trace_dir})
+            wall = time.perf_counter() - t0
+            tm.WRITE_PERIOD = 1
+            traced = trace_iterations(os.path.join(trace_dir, "trace.json"))
+            if traced is None:
+                print("[trainer] TPU.PROFILE_DIR trace at 24 + 24: device "
+                      "busy share not measured (the trace holds no device "
+                      "events)", flush=True)
+            else:
+                per_it, n_device = traced
+                print(f"[trainer] TPU.PROFILE_DIR trace at 24 + 24 "
+                      f"(--resume 6 -> 20 in {wall:.2f} s, iterations 16-18 "
+                      f"traced, WRITE_PERIOD {probe.saved[0]}, "
+                      f"{n_device} device events): " + "; ".join(
+                          f"iteration {16 + i}: {ms:.2f} ms, device busy "
+                          f"{busy:.2f} ms, idle share "
+                          f"{max(0.0, 1 - busy / ms):.3f}, host in runtime "
+                          f"calls >= 1 ms: " + (", ".join(
+                              f"{k} {v:.2f} ms" for k, v in sorted(
+                                  waits.items(), key=lambda kv: -kv[1]))
+                              or "none")
+                          for i, (ms, busy, waits) in enumerate(per_it))
+                      + f"; card {card}", flush=True)
+            probe.reset(None)
+        release()
+        return launches, eval_launches, probe.recorded.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fmt(xs, digits=2):
+    return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
 def model_name(cfg):
     """"R50-FPN" or "ViTDet-B" for the log lines."""
     name = cfg.MODEL.BACKBONE.NAME
@@ -1617,7 +2165,16 @@ def main():
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
 
-    # -- 5. result lines. ``launches``: K1/K2 from the flagship's timed
+    # -- 5. trainer phase: the training CLI at the published batch
+    trainer_launches, eval_launches, recorded = trainer_phase(
+        card, flagship_kernels)
+    # K1 and K2 held against their plain versions at the trainer's first
+    # step's own launches (24 + 24 images)
+    trainer_kernels = time_step_launches("R50-FPN trainer", recorded)
+    del recorded
+    torch.cuda.empty_cache()
+
+    # -- 6. result lines. ``launches``: K1/K2 from the flagship's timed
     # training steps, K3a/K3b from ViTDet-B's; ``launches_by_path`` has
     # every path's count (K2's forward and K3a also serve). The other
     # numbers: the kernel phase's, at the paths' shapes (K2's forward on a
@@ -1627,6 +2184,9 @@ def main():
     by_path = {"R50-FPN training": {k.name: launches[k.name]
                                     for k in flagship_kernels},
                "ViTDet-B training": vit_launches,
+               "R50-FPN trainer": trainer_launches,
+               "R50-FPN eval": {"roi_align_fwd":
+                                eval_launches["roi_align_fwd"]},
         **{f"{m} serving": v for m, v in serving_launches.items()}}
     print(f"[card] {card}")
     entries = []
@@ -1642,15 +2202,16 @@ def main():
         if kind:  # K2 and K1 at each training step's own launches
             keys = ("ms", "bound_ms", "plain_ms", "max_abs_err")
             entry["step_launches"] = {
-                f"{m} training": [
+                path: [
                     {"boxes": r["boxes"], **{key: r[key] for key in keys}}
                     if kind != "match" else
                     {"site": r["site"], "valid_gt": r["valid_gt"],
                      **{key: r[k.name][key]
                         for key in keys + ("kernel_ms", "dense_bound_ms")}}
                     for r in rs if r["kind"] == kind]
-                for m, rs in (("R50-FPN", step_kernels),
-                              ("ViTDet-B", vit_step_kernels))}
+                for path, rs in (("R50-FPN training", step_kernels),
+                                 ("ViTDet-B training", vit_step_kernels),
+                                 ("R50-FPN trainer", trainer_kernels))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

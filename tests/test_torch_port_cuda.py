@@ -416,3 +416,129 @@ def test_tiny_vitdet_on_card_matches_cpu(card):
 def test_tiny_vitdet_train_step_on_card_matches_cpu(card):
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
+
+
+class _HostBatches:
+    """A seekable host loader: batch i is a function of i (uint8 images,
+    int32 sizes, nested as the trainer's batches are)."""
+
+    def __init__(self):
+        self.i = 0
+
+    @staticmethod
+    def batch(i):
+        rng = np.random.default_rng(i)
+        return {"labeled": {"image": rng.integers(0, 256, (4, 64, 96, 3),
+                                                  dtype=np.uint8),
+                            "sizes": rng.integers(1, 64, (4, 2),
+                                                  dtype=np.int32)},
+                "unlabeled": {"image": rng.integers(0, 256, (4, 64, 96, 3),
+                                                    dtype=np.uint8)}}
+
+    def seek(self, i):
+        self.i = i
+
+    def __next__(self):
+        self.i += 1
+        return self.batch(self.i - 1)
+
+
+def _equal_on_card(got, want):
+    for s, d in want.items():
+        for k, v in d.items():
+            t = got[s][k]
+            assert t.is_cuda and t.dtype == torch.from_numpy(v).dtype
+            # read on the consumer's stream, as a step would
+            assert torch.equal(t.cpu(), torch.from_numpy(v)), (s, k)
+            assert int((t.to(torch.int64) * 2).sum()) == 2 * int(v.sum())
+
+
+def test_device_prefetcher_batches_equal_host(card):
+    """Batches on the card equal the host's, after a pause of the consumer
+    (the copy thread fills its queue) and after ``close()`` and a new
+    prefetcher on the loader seeked to where the consumer stopped."""
+    import time
+
+    from aldi_tpu_torch.data.loader import DevicePrefetcher
+
+    host = _HostBatches()
+    pre = DevicePrefetcher(host, card, depth=2)
+    for i in range(2):
+        _equal_on_card(next(pre), _HostBatches.batch(i))
+    time.sleep(0.5)  # the consumer pauses (an eval, a checkpoint)
+    for i in range(2, 5):
+        _equal_on_card(next(pre), _HostBatches.batch(i))
+    pre.close()
+    assert not pre._thread.is_alive()
+    host.seek(5)
+    pre = DevicePrefetcher(host, card, depth=3)
+    for i in range(5, 8):
+        _equal_on_card(next(pre), _HostBatches.batch(i))
+    pre.close()
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_tiny_trainer_on_card_checkpoints_and_resumes(card, tmp_path, accum):
+    """The trainer on the card at the tiny float32 config (and with
+    TPU.GRAD_ACCUM 2): 2 iterations with a checkpoint at each, then a new
+    trainer resumed from the second goes on at iteration 2 with its
+    weights, teacher and momentum, to 3."""
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.data.catalog import (DatasetCatalog,
+                                             register_coco_instances)
+    from aldi_tpu_torch.engine.trainer import ALDITrainer
+    from chip_smoke import FLAGSHIP, write_synthetic_coco
+
+    names = {}
+    for split, n, seed in (("train", 6, 1), ("unlabeled", 6, 2),
+                           ("val", 4, 3)):
+        names[split] = f"card_tiny_{split}"
+        if names[split] not in DatasetCatalog:
+            register_coco_instances(names[split], {}, *write_synthetic_coco(
+                str(tmp_path), names[split], n, seed, num_classes=3,
+                size=(96, 128), box_px=(12, 48)))
+
+    def cfg_for(max_iter):
+        cfg = get_cfg()
+        cfg.merge_from_file(FLAGSHIP)
+        cfg.merge_from_list([
+            "MODEL.DEVICE", "cuda", "MODEL.WEIGHTS", "",
+            "MODEL.RESNETS.DEPTH", "26", "MODEL.ROI_HEADS.NUM_CLASSES", "3",
+            "TPU.CANVAS", "(128, 128)", "TPU.MAX_GT", "8",
+            "TPU.COMPUTE_DTYPE", "float32", "INPUT.MIN_SIZE_TRAIN",
+            "(96, 112)", "INPUT.MAX_SIZE_TRAIN", "128",
+            "INPUT.MIN_SIZE_TEST", "96", "INPUT.MAX_SIZE_TEST", "128",
+            "MODEL.RPN.POST_NMS_TOPK_TRAIN", "64",
+            "MODEL.RPN.POST_NMS_TOPK_TEST", "64",
+            "DATASETS.TRAIN", f"('{names['train']}',)",
+            "DATASETS.UNLABELED", f"('{names['unlabeled']}',)",
+            "DATASETS.TEST", f"('{names['val']}',)",
+            "SOLVER.IMS_PER_BATCH", "4", "SOLVER.MAX_ITER", str(max_iter),
+            "SOLVER.CHECKPOINT_PERIOD", "1", "TEST.EVAL_PERIOD", "0",
+            "SOLVER.WARMUP_ITERS", "0", "SOLVER.BASE_LR", "0.01",
+            "DOMAIN_ADAPT.TEACHER.THRESHOLD", "0.3",
+            "OUTPUT_DIR", str(tmp_path / "out"), "SEED", "3",
+            "TPU.GRAD_ACCUM", str(accum)])
+        return cfg
+
+    first = ALDITrainer(cfg_for(2))
+    assert first.device.type == "cuda"
+    first.train()
+    assert {"model_0000001.pth", "model_0000002.pth"} <= set(
+        p.name for p in (tmp_path / "out").iterdir())
+    resumed = ALDITrainer(cfg_for(3))
+    resumed.resume_or_load(resume=True)
+    assert resumed.state.step == 2
+    for a, b in ((first.state.student, resumed.state.student),
+                 (first.state.teacher, resumed.state.teacher)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    ma, mb = (t.state.optimizer.state_dict()["state"] for t in
+              (first, resumed))
+    assert ma.keys() == mb.keys() and len(ma) > 0
+    assert all(torch.equal(ma[i]["momentum_buffer"], mb[i]["momentum_buffer"])
+               for i in ma)
+    results = resumed.train()
+    assert results == {} and resumed.state.step == 3
+    assert (tmp_path / "out" / "model_0000003.pth").exists()
+    assert resumed.test()[names["val"]]["bbox/AP50"] >= 0

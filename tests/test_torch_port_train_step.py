@@ -415,7 +415,6 @@ def test_train_state_round_trips_jax_variables(dets):
 @pytest.mark.parametrize("key,value", [
     ("DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED", True),
     ("DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED", True),
-    ("TPU.GRAD_ACCUM", 2),
     ("TPU.RPN_LOSS_IMPL", "dense"),
 ])
 def test_unported_training_configs_raise(key, value):

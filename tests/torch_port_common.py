@@ -125,3 +125,66 @@ def vitdet_head_config(cfg):
     cfg.MODEL.RPN.CONV_DIMS = [-1, -1]
     return cfg
 
+
+
+def register_synthetic_both(root, prefix, splits=None):
+    """``tests/synthetic_data.py`` splits written under ``root`` and
+    registered as ``{prefix}_{split}`` in both packages' catalogs (each
+    package keeps its own registry). ``splits``: {split: (images, seed,
+    fog)}. Returns the names."""
+    from aldi_tpu.data import catalog as jax_catalog
+    from aldi_tpu_torch.data import catalog as port_catalog
+    from tests.synthetic_data import make_synthetic_coco
+
+    splits = splits or {"train": (8, 0, False), "val": (4, 1, False),
+                        "unlabeled": (8, 2, True)}
+    names = {}
+    for split, (n, seed, fog) in splits.items():
+        name = f"{prefix}_{split}"
+        jp, ir = make_synthetic_coco(str(root), name, n, seed=seed, fog=fog)
+        for cat in (jax_catalog, port_catalog):
+            if name not in cat.DatasetCatalog:
+                cat.register_coco_instances(name, {}, jp, ir)
+        names[split] = name
+    return names
+
+
+def loader_cfg(cfg, names):
+    """The tiny config's input sizes for the 96x128 synthetic images on the
+    128 canvas, with ``names``' datasets."""
+    cfg.INPUT.MIN_SIZE_TRAIN = (96, 112)
+    cfg.INPUT.MAX_SIZE_TRAIN = 128
+    cfg.INPUT.MIN_SIZE_TEST = 96
+    cfg.INPUT.MAX_SIZE_TEST = 128
+    cfg.TPU.MAX_GT = 8
+    cfg.TPU.DATA_THREADS = 2
+    cfg.DATASETS.TRAIN = (names["train"],)
+    cfg.DATASETS.UNLABELED = (names["unlabeled"],)
+    cfg.DATASETS.TEST = (names["val"],)
+    return cfg
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """PyTorch's intra-op threads set to ``n`` for the duration (the tests
+    run in several worker processes at once: eight threads each
+    oversubscribe the cores)."""
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def drop_weight_files(root):
+    """Delete the ``.pth`` and ``.pkl`` files under ``root``: a test's
+    checkpoints of a full-width ResNet take hundreds of MB each, and pytest
+    keeps the temporary directories of its last runs."""
+    import pathlib
+
+    for pattern in ("*.pth", "*.pkl"):
+        for path in pathlib.Path(root).rglob(pattern):
+            path.unlink()

@@ -170,11 +170,31 @@ def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors,
     """Every draw of ``make_train_step(...)(state, batch, rng)`` for the
     labeled_strong + distill composition of the flagship, keyed as the
     port's ``draw_step`` keys them (``drop_masks``: see
-    ``forward_train_draws``)."""
+    ``forward_train_draws``). With ``TPU.GRAD_ACCUM = k > 1`` the student
+    streams' entries are lists of k chunks' draws, from the keys
+    ``split(fold_in(keys[7], i), 4)`` of chunk i
+    (``aldi_tpu/engine/train_step.py:354-356``)."""
     keys = jax.random.split(rng, 10)
     aug = cfg.AUG
     rpn = cfg.MODEL.RPN
     canvas = tuple(cfg.TPU.CANVAS)
+    accum = max(int(cfg.TPU.GRAD_ACCUM), 1)
+    if accum == 1:
+        students = {
+            "strong": forward_train_draws(keys[4], cfg, n_labeled, n_anchors,
+                                          drop_masks),
+            "distill": forward_train_draws(keys[6], cfg, n_unlabeled,
+                                           n_anchors, drop_masks)}
+    else:
+        chunk_keys = [jax.random.split(jax.random.fold_in(keys[7], i), 4)
+                      for i in range(accum)]
+        students = {
+            "strong": [forward_train_draws(k[1], cfg, n_labeled // accum,
+                                           n_anchors, drop_masks)
+                       for k in chunk_keys],
+            "distill": [forward_train_draws(k[3], cfg, n_unlabeled // accum,
+                                            n_anchors, drop_masks)
+                        for k in chunk_keys]}
     return {
         "teacher": label_anchors_draws(keys[0], n_unlabeled, n_anchors,
                                        rpn.BATCH_SIZE_PER_IMAGE,
@@ -186,8 +206,5 @@ def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors,
             keys[2], n_unlabeled, canvas,
             aug.UNLABELED_INCLUDE_RANDOM_ERASING, aug.UNLABELED_MIC_AUG,
             aug.MIC_BLOCK_SIZE),
-        "strong": forward_train_draws(keys[4], cfg, n_labeled, n_anchors,
-                                      drop_masks),
-        "distill": forward_train_draws(keys[6], cfg, n_unlabeled, n_anchors,
-                                       drop_masks),
+        **students,
     }
