@@ -373,6 +373,12 @@ class RCNNDetector:
         [B, D] int32, valid [B, D])."""
         if precomputed is not None:
             raise NotImplementedError(f"MODEL.LOAD_PROPOSALS {_NOT_PORTED}")
+        return self.detect(images, image_sizes, module)
+
+    def detect(self, images, image_sizes, module=None):
+        """``forward_inference``'s body without its ``inference_mode``, which
+        ``torch.export`` cannot trace: the exported serving module
+        (``engine/export.py``) runs it under ``no_grad``."""
         feats = self.backbone(self.preprocess(images), module)
         logits, deltas = self.rpn_head(feats, module)
         pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes)

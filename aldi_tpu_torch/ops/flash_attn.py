@@ -19,16 +19,19 @@ backward:
 ``flash_attn_split_backward`` emulates K3b's bfloat16 arithmetic (P and dS
 split into two bfloat16 terms before the tensor cores) for the tests.
 
-``FlashAttentionRelPos`` pairs each forward with its backward, as the JAX
-package's ``custom_vjp`` does; the backward is never autograd through the
-plain forward (that would accumulate bfloat16 products in bfloat16). The
+``flash_attention_relpos`` calls the custom op
+``aldi_tpu_torch::flash_attn_fwd`` (``custom_ops.py``): CPU tensors take the
+plain versions, CUDA tensors the kernels, and its autograd pairs the forward
+with the backward op, as the JAX package's ``custom_vjp`` does; the
+backward is never autograd through the plain forward (that would
+accumulate bfloat16 products in bfloat16). The
 Pallas kernel's tilings (``supported_shape``) do not apply: the CUDA
 kernels mask their ragged tiles, so any N and grid are taken.
 """
 
 import torch
 
-from .flash_attn_kernel import flash_attn_bwd, flash_attn_fwd
+from . import custom_ops
 
 # [G, N, N] float32 elements one plain call holds at once (1 GiB)
 _PLAIN_CHUNK = 1 << 28
@@ -142,36 +145,10 @@ def flash_attn_split_backward(q, k, v, bh, bw, lse, delta, dout, scale,
     return dq, dk, dv, dbh, dbw
 
 
-class FlashAttentionRelPos(torch.autograd.Function):
-    """The plain versions for CPU tensors, the kernels for CUDA tensors."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, bh, bw, scale, h_grid, w_grid):
-        if q.device.type == "cpu":
-            out, lse = flash_attn_plain(q, k, v, bh, bw, scale, h_grid,
-                                        w_grid)
-        else:
-            out, lse = flash_attn_fwd(q, k, v, bh, bw, scale, h_grid, w_grid)
-        ctx.save_for_backward(q, k, v, bh, bw, out, lse)
-        ctx.meta = (scale, h_grid, w_grid)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, bh, bw, out, lse = ctx.saved_tensors
-        scale, h_grid, w_grid = ctx.meta
-        dout = dout.contiguous()
-        delta = attn_delta(out, dout)
-        fn = (flash_attn_plain_backward if q.device.type == "cpu"
-              else flash_attn_bwd)
-        grads = fn(q, k, v, bh, bw, lse, delta, dout, scale, h_grid, w_grid)
-        return (*grads, None, None, None)
-
-
 def flash_attention_relpos(q, k, v, bh, bw, scale, h_grid, w_grid):
     """Exact softmax(q k^T * scale + decomposed rel-pos bias) v, [G, N, D],
     differentiable in q, k, v, bh and bw. The bias is not scaled."""
-    return FlashAttentionRelPos.apply(
+    return custom_ops.flash_attn_fwd(
         q.contiguous(), k.contiguous(), v.contiguous(),
         bh.float().contiguous(), bw.float().contiguous(), float(scale),
-        int(h_grid), int(w_grid))
+        int(h_grid), int(w_grid))[0]

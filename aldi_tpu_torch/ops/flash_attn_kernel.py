@@ -9,7 +9,9 @@ PyTorch versions are ``flash_attn.flash_attn_plain`` and
 ``flash_attn.flash_attn_plain_backward``, which take the same arguments.
 The libraries are built and loaded on the first launch, never on import.
 The wrappers check devices, dtypes, shapes and contiguity and raise on what
-the kernels do not take; they never fall back to the plain versions.
+the kernels do not take; they never fall back to the plain versions. The
+custom ops ``flash_attn_fwd`` and ``flash_attn_bwd`` of ``custom_ops.py``
+call them for CUDA tensors.
 """
 
 import ctypes

@@ -5,9 +5,11 @@ Counterpart of ``aldi_tpu/ops/pallas_match.py``: ``match_iou`` replaces
 ``match_iou_pallas`` (``:67``) and ``low_quality_mask`` replaces
 ``low_quality_mask_pallas`` (``:139``); the source says what bounds them on
 the card. Unlike the Pallas kernels, one launch covers every image of the
-batch. ``match_boxes`` sends CPU tensors to ``match_boxes_plain``
-(``pairwise_iou`` + ``matcher.match``) and CUDA tensors to the kernels; it
-never falls back. The libraries are built on the first launch, never on
+batch. ``match_boxes`` calls them as the custom ops of ``custom_ops.py``,
+whose dispatcher sends CPU tensors to the plain versions and CUDA tensors
+to the kernels; it never falls back. ``match_boxes_plain``
+(``pairwise_iou`` + ``matcher.match``) is the same function, for the
+tests. The libraries are built on the first launch, never on
 import. ``match_iou_culled`` and ``low_quality_mask_culled`` replay the
 kernels' per-block gt culling in plain PyTorch, for the tests; nothing on
 the training path calls them.
@@ -17,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, custom_ops
 from .boxes import pairwise_iou
 from .matcher import match
 
@@ -239,19 +241,17 @@ def match_boxes_plain(anchors, gt_boxes, gt_valid, thresholds, labels,
 
 def match_boxes(anchors, gt_boxes, gt_valid, thresholds, labels,
                 allow_low_quality=False):
-    """Matcher semantics of ``match_boxes_plain`` for the whole batch: CPU
-    tensors take the plain version, CUDA tensors K1a (and K1b for the
-    low-quality matches)."""
-    if anchors.device.type == "cpu":
-        return match_boxes_plain(anchors, gt_boxes, gt_valid, thresholds,
-                                 labels, allow_low_quality)
+    """Matcher semantics of ``match_boxes_plain`` for the whole batch,
+    through the custom ops ``aldi_tpu_torch::match_iou`` (and
+    ``low_quality_mask`` for the low-quality matches): CPU tensors take the
+    plain versions, CUDA tensors K1a and K1b."""
     gt_boxes, gt_valid = gt_boxes.contiguous(), gt_valid.contiguous()
-    vals, idx, best = match_iou(anchors, gt_boxes, gt_valid)
+    vals, idx, best = custom_ops.match_iou(anchors, gt_boxes, gt_valid)
     out = torch.full(vals.shape, labels[0], dtype=torch.int8,
                      device=vals.device)
     for lo, lab in zip(thresholds, labels[1:]):
         out = torch.where(vals >= lo, torch.full_like(out, lab), out)
     if allow_low_quality:
-        lowq = low_quality_mask(anchors, gt_boxes, gt_valid, best)
+        lowq = custom_ops.low_quality_mask(anchors, gt_boxes, gt_valid, best)
         out = torch.where(lowq, torch.ones_like(out), out)
     return idx, out

@@ -8,7 +8,8 @@ fixed point of ``keep = valid & ~(keep @ S)``. After t iterations the first
 t sorted positions are final, so it converges in <= N steps; in practice a
 handful. Every (image, level) pair runs in one batched ``[G, N, N]`` loop,
 and the host checks for convergence only every ``_CHECK_EVERY`` steps:
-steps past the fixed point leave it unchanged.
+steps past the fixed point leave it unchanged. Under ``torch.export`` the
+same steps run as a ``while_loop`` (``_fixed_point_traced``).
 """
 
 import torch
@@ -16,6 +17,44 @@ import torch
 from .boxes import pairwise_iou
 
 _CHECK_EVERY = 8
+
+
+def _steps(keep, v, supp):
+    """``_CHECK_EVERY`` steps of ``keep = v & ~(keep @ S)``: (keep, the
+    keep of the step before the last)."""
+    for _ in range(_CHECK_EVERY):
+        prev = keep
+        removed = torch.bmm(keep.to(torch.float32)[:, None, :],
+                            supp)[:, 0] > 0.0
+        keep = v & ~removed
+    return keep, prev
+
+
+def _fixed_point_traced(v, supp):
+    """The fixed-point loop as a ``while_loop`` the tracer keeps in the
+    graph (``torch.export`` cannot keep the eager loop's data-dependent
+    exit): the same ``_steps`` bodies while the last step changed keep and
+    fewer than N steps ran (``aldi_tpu/ops/nms.py:48-58``). The first body
+    runs before the loop, as the eager loop's does: a ``while_loop`` reads
+    its condition on the host before every body, and a read before the
+    first would add one synchronization per call. Eagerly, ``while_loop``
+    would compile through dynamo, so only a traced call takes this form."""
+    from torch._higher_order_ops import while_loop
+
+    n = v.shape[-1]
+
+    def cond(keep, changed, steps):
+        return changed & (steps < n)
+
+    def body(keep, changed, steps):
+        keep, prev = _steps(keep, v, supp)
+        return keep, (keep != prev).any(), steps + _CHECK_EVERY
+
+    keep, prev = _steps(v, v, supp)
+    keep, _, _ = while_loop(cond, body, (
+        keep, (keep != prev).any(),
+        torch.full((), _CHECK_EVERY, dtype=torch.int64, device=v.device)))
+    return keep
 
 
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
@@ -39,15 +78,14 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     supp = ((pairwise_iou(b, b) > iou_threshold) & upper
             & v[:, :, None] & v[:, None, :]).to(torch.float32)
 
-    keep = v
-    for _ in range(0, n, _CHECK_EVERY):
-        for _ in range(_CHECK_EVERY):
-            prev = keep
-            removed = torch.bmm(keep.to(torch.float32)[:, None, :],
-                                supp)[:, 0] > 0.0
-            keep = v & ~removed
-        if torch.equal(keep, prev):
-            break
+    if torch.compiler.is_exporting():
+        keep = _fixed_point_traced(v, supp)
+    else:
+        keep = v
+        for _ in range(0, n, _CHECK_EVERY):
+            keep, prev = _steps(keep, v, supp)
+            if torch.equal(keep, prev):
+                break
 
     out = torch.zeros_like(keep).scatter_(1, order, keep)
     return out.reshape(lead + (n,))

@@ -15,21 +15,22 @@ The backward with respect to the features has the same two versions:
 JAX package's ``_fused_bwd``, ``aldi_tpu/ops/roi_align.py:342``) and the
 CUDA kernel behind ``roi_align_kernel.roi_align_bwd``, which owns the
 gradient tile by tile; ``roi_tile_terms`` and ``roi_align_tiled_backward``
-replay that kernel's binning and sum in plain PyTorch (its CPU rehearsal). ``RoIAlignFunction``
-pairs each forward with its backward; the gradient with respect to the
-boxes is None (proposal boxes are constants of the ROI stage, as the JAX
-package's ``stop_gradient`` makes them).
+replay that kernel's binning and sum in plain PyTorch (its CPU rehearsal).
 
-``roi_align_batched`` sends CPU tensors to the plain versions and CUDA
-tensors to the kernels. Sampling ratio 2 and output 7x7 are what the box
-pooler uses.
+``roi_align_batched`` calls the custom op ``aldi_tpu_torch::roi_align_fwd``
+(``custom_ops.py``), whose dispatcher sends CPU tensors to the plain
+versions and CUDA tensors to the kernels, and whose autograd pairs the
+forward with the backward op; the gradient with respect to the boxes is
+None (proposal boxes are constants of the ROI stage, as the JAX package's
+``stop_gradient`` makes them). Sampling ratio 2 and output 7x7 are what the
+box pooler uses.
 """
 
 import math
 
 import torch
 
-from .roi_align_kernel import roi_align_bwd, roi_align_fwd
+from . import custom_ops
 
 
 def assign_levels(boxes: torch.Tensor, min_level: int, max_level: int,
@@ -194,8 +195,10 @@ def roi_align_plain_backward(grad, boxes, levels, feat_shapes, feat_dtype,
     table = torch.stack(tables)  # [B, rows, C]
     out, start = [], 0
     for h, w in feat_shapes:
+        # a copy even in float32: the levels must not share the table (an
+        # op's outputs may not alias each other)
         out.append(table[:, start:start + h * w].reshape(b, h, w, c)
-                   .to(feat_dtype))
+                   .to(feat_dtype, copy=True))
         start += h * w
     return out
 
@@ -322,39 +325,6 @@ def roi_align_tiled_backward(grad, boxes, levels, feat_shapes, feat_dtype,
     return [o.to(feat_dtype) for o in outs]
 
 
-class RoIAlignFunction(torch.autograd.Function):
-    """Multi-level ROIAlign with its backward: ``roi_align_plain`` and
-    ``roi_align_plain_backward`` for CPU tensors, the forward and backward
-    kernels for CUDA tensors. The levels are computed once by the caller
-    and saved for the backward; the boxes get no gradient."""
-
-    @staticmethod
-    def forward(ctx, boxes, levels, strides, output_size, sampling_ratio,
-                *features):
-        ctx.save_for_backward(boxes, levels)
-        ctx.meta = (tuple(strides), sampling_ratio,
-                    [(int(f.shape[1]), int(f.shape[2])) for f in features],
-                    features[0].dtype)
-        if boxes.device.type == "cpu":
-            return roi_align_plain(features, boxes, levels, strides,
-                                   output_size, sampling_ratio)
-        return roi_align_fwd(features, boxes, levels, strides, output_size,
-                             sampling_ratio)
-
-    @staticmethod
-    def backward(ctx, grad):
-        boxes, levels = ctx.saved_tensors
-        strides, sr, feat_shapes, dtype = ctx.meta
-        grad = grad.contiguous()
-        if boxes.device.type == "cpu":
-            grads = roi_align_plain_backward(grad, boxes, levels,
-                                             feat_shapes, dtype, strides, sr)
-        else:
-            grads = roi_align_bwd(grad, boxes, levels, feat_shapes, dtype,
-                                  strides, sr)
-        return (None, None, None, None, None, *grads)
-
-
 def roi_align_batched(features, boxes, box_valid, strides, output_size=7,
                       sampling_ratio=2):
     """Batched multi-level ROIAlign: features per-level [B, H, W, C] (NHWC,
@@ -366,5 +336,6 @@ def roi_align_batched(features, boxes, box_valid, strides, output_size=7,
     """
     boxes = boxes.detach().to(torch.float32).contiguous()
     levels = box_levels(boxes, box_valid, strides)
-    return RoIAlignFunction.apply(boxes, levels, list(strides), output_size,
-                                  sampling_ratio, *features)
+    return custom_ops.roi_align_fwd(list(features), boxes, levels,
+                                    list(strides), output_size,
+                                    sampling_ratio)

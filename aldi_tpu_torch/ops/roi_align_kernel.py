@@ -21,7 +21,8 @@ sources say what bounds them on the card. Their plain PyTorch versions are
 which take the same arguments. The libraries are built and loaded on the
 first launch, never on import. The wrappers check devices, dtypes, shapes
 and contiguity and raise on what the kernels do not take; they never fall
-back to the plain versions.
+back to the plain versions. The custom ops ``roi_align_fwd`` and
+``roi_align_bwd`` of ``custom_ops.py`` call them for CUDA tensors.
 """
 
 import ctypes

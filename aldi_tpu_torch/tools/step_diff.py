@@ -6,13 +6,15 @@ into a git-ignored directory. For each, in the order given, a child
 process imports that tree's ``aldi_tpu_torch`` (and this tree's
 ``chip_smoke.py`` for the seeded weights, the synthetic batch and the
 trace), builds the configuration's detector at full width, runs a warm-up
-DAOD step of 4 + 4 images and traces one more (``chip_smoke.device_busy``).
+DAOD step of 4 + 4 images, traces one more (``chip_smoke.device_busy``)
+and times 3 more on the host clock, each ending in a synchronize.
 It reports the shape and strides of both strong views (``strong_augment``'s
 outputs) and how many inputs of the warm-up step's convolutions (each
 ``aten.convolution`` call) are stored NHWC, NCHW or otherwise; then the
 traced step's device busy time and each CUDA kernel's device time and
-calls. Then the kernels whose time moved most between the first two names
-are printed, each name's times the mean over its runs.
+calls, and the 3 steps' times. Then the kernels whose time moved most
+between the first two names are printed, each name's times the mean over
+its runs.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -26,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -85,7 +88,14 @@ def child(tree, config):
     if traced is None:
         raise SystemExit("the trace holds no device events")
     busy, _, per_kernel = traced
-    print(TAG + json.dumps({"busy_ms": busy, "views": views, "convs": convs,
+    step_ms = []
+    for _ in range(cs.TIMED_STEPS):  # host clock, as chip_smoke times steps
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[1], draws[1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(TAG + json.dumps({"busy_ms": busy, "step_ms": step_ms,
+                            "views": views, "convs": convs,
                             "kernels": per_kernel}), flush=True)
 
 
@@ -114,7 +124,10 @@ def main():
         r = json.loads(lines[0][len(TAG):])
         runs.append((name, r))
         print(f"[step] {spec}, {args.config}: device busy "
-              f"{r['busy_ms']:.2f} ms; strong views (shape, strides) "
+              f"{r['busy_ms']:.2f} ms; steps after it "
+              f"{', '.join(f'{x:.2f}' for x in r['step_ms'])} ms (median "
+              f"{sorted(r['step_ms'])[len(r['step_ms']) // 2]:.2f}); "
+              f"strong views (shape, strides) "
               f"{r['views']}; convolution inputs by storage {r['convs']}",
               flush=True)
 

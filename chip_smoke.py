@@ -39,7 +39,21 @@ failure exits non-zero:
    Then a tiny float32 detector of each family on the card is held against
    the same detector on the CPU (the tiny ViT has 64-wide heads, so the
    attention kernel runs).
-4. Training phase, for each of the two configs' ALDI++ DAOD steps
+4. Artifact phase, for each of the same two detectors (full width, 8
+   classes, 1024x2048, bfloat16, ``seeded_weights``): the serving artifact
+   exported for ``cuda`` through ``export_inference`` (the graph must call
+   K2's forward op once, and for ViTDet-B K3a's op 4 times), saved with
+   ``save_artifact`` into a temporary directory (its size printed; deleted afterwards), loaded with
+   ``load_artifact`` and served (a request run node by node must copy no
+   pyramid level before K2): one warm-up request and 3 timed
+   requests, launch counts set to 0 just before them and read just after
+   (K2's forward once per request, K3a 4 times), every output bitwise
+   equal to the eager ``make_serving_fn`` on the same request, whose
+   latency is printed beside the artifact's with the export, save and
+   load seconds. Then the tiny float32 R50-FPN exported for ``cpu`` and
+   ``cuda``: the ``cuda`` program bitwise equal to eager on the card, the
+   ``cpu`` program within ``tiny_reference_check``'s tolerances of it.
+5. Training phase, for each of the two configs' ALDI++ DAOD steps
    (bfloat16, one backward per stream, soft distillation, erasing on the
    labeled stream, MIC on the unlabeled one; SGD for R50-FPN, AdamW with
    layer decay, drop path and activation checkpointing for ViTDet-B)
@@ -59,7 +73,7 @@ failure exits non-zero:
    with the level shapes; K1: each call's anchors and gt, and its call
    site). Then a tiny float32 step on the card against the same step on
    the CPU.
-5. Trainer phase: the flagship through the training CLI,
+6. Trainer phase: the flagship through the training CLI,
    ``aldi_tpu_torch/tools/train_net.py`` ``main`` with
    ``configs/cityscapes/ALDI-Best-Cityscapes.yaml`` at the published
    SOLVER.IMS_PER_BATCH 48 (24 labeled + 24 unlabeled images of
@@ -85,7 +99,7 @@ failure exits non-zero:
    and K1a/K1b held against their plain versions and timed at each of
    the first run's first step's own launches (24 + 24 images: their real
    boxes, levels, anchors and gt), as in the training phase.
-6. Print the card line, a ``{"kernels": [...]}`` line and, last,
+7. Print the card line, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
@@ -793,17 +807,11 @@ class tiny_vit:
         vit.VIT_CONFIGS["b"] = self.saved
 
 
-def tiny_reference_check(config=None):
-    """A tiny float32 detector (``config`` or the defaults, depth 26 or the
-    tiny ViT, canvas 128, 3 classes) on the card against the same detector
-    on the CPU, both with ``seeded_weights``, TF32 off: detections agree
-    where valid (boxes 1e-3 px, scores 1e-4)."""
-    import numpy as np
-    import torch
-
+def tiny_config(config=None):
+    """``config`` (or the defaults) cut to the tiny float32 detector: depth
+    26 or the tiny ViT, canvas 128, 3 classes, RPN top-k 64/32, 10
+    detections per image."""
     from aldi_tpu_torch.config import get_cfg
-    from aldi_tpu_torch.engine.export import make_serving_fn
-    from aldi_tpu_torch.models import build_detector
 
     cfg = get_cfg()
     if config is not None:
@@ -817,6 +825,21 @@ def tiny_reference_check(config=None):
     cfg.MODEL.ROI_BOX_HEAD.NUM_FC = 2
     cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
     cfg.TEST.DETECTIONS_PER_IMAGE = 10
+    return cfg
+
+
+def tiny_reference_check(config=None):
+    """A tiny float32 detector (``config`` or the defaults, depth 26 or the
+    tiny ViT, canvas 128, 3 classes) on the card against the same detector
+    on the CPU, both with ``seeded_weights``, TF32 off: detections agree
+    where valid (boxes 1e-3 px, scores 1e-4)."""
+    import numpy as np
+    import torch
+
+    from aldi_tpu_torch.engine.export import make_serving_fn
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = tiny_config(config)
     rng = np.random.default_rng(0)
     images = rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32)
     sizes = np.asarray([[128, 128], [100, 120]], np.int32)
@@ -1391,6 +1414,238 @@ def request_proposals(det, images, sizes):
     feats = [f.contiguous() for f in feats[:-1]]
     pboxes = pboxes.float().contiguous()
     return feats, pboxes, box_levels(pboxes, pvalid, det.roi_strides), copied
+
+
+def artifact_level_copies(model, images, sizes):
+    """One request through a loaded artifact's graph, node by node: the
+    pyramid levels K2's forward op takes that the graph had to copy first
+    (a ``contiguous`` or ``clone`` node whose input was not contiguous),
+    as (node, shape, strides): the artifact's counterpart of a box-head
+    call that copies a level. The graph may hold a ``contiguous`` node that
+    copies nothing."""
+    import torch
+
+    graph_module = model.module
+    feeds = {f for n in graph_module.graph.nodes
+             if n.op == "call_function"
+             and str(n.target).startswith("aldi_tpu_torch.roi_align_fwd")
+             for f in n.args[0]}
+    copies = []
+
+    class Probe(torch.fx.Interpreter):
+        def run_node(self, n):
+            if n in feeds and n.op == "call_function" and any(
+                    s in str(n.target) for s in ("contiguous", "clone")):
+                x = self.env[n.args[0]]
+                if not x.is_contiguous():
+                    copies.append((n.name, tuple(x.shape), x.stride()))
+            return super().run_node(n)
+
+    with torch.no_grad():
+        Probe(graph_module).run(images, sizes)
+    return copies
+
+
+def kernel_ops_of(program):
+    """The kernels' custom ops the exported graph calls, with their
+    counts."""
+    ops = {}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("aldi_tpu_torch."):
+            ops[name.split(".")[1]] = ops.get(name.split(".")[1], 0) + 1
+    return ops
+
+
+def outputs_differ(got, want):
+    """{output: max abs err (or the count of unequal entries for valid and
+    classes)} over the outputs that are not bitwise equal; boxes and scores
+    compared where both are valid."""
+    import torch
+
+    diff = {}
+    for k in ("valid", "classes"):
+        if not torch.equal(got[k], want[k]):
+            diff[k] = int((got[k] != want[k]).sum())
+    m = got["valid"] & want["valid"]
+    for k in ("boxes", "scores"):
+        if not torch.equal(got[k][m], want[k][m]):
+            diff[k] = (got[k][m].float() - want[k][m].float()).abs().max(
+            ).item()
+    return diff
+
+
+def artifact_phase(card, config, kernels, per_request):
+    """The serving artifact of ``config`` at full width (see the module
+    docstring): exported for ``cuda`` through ``export_inference`` with
+    ``seeded_weights``, saved into a temporary directory, loaded with
+    ``load_artifact`` and served, every request held bitwise against the
+    eager ``make_serving_fn`` on the same weights. ``per_request``: the
+    launches each request must make of each kernel. Returns the launch
+    counts of the timed artifact requests."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.engine.export import (export_inference, load_artifact,
+                                              make_serving_fn, save_artifact)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = get_cfg()
+    cfg.merge_from_file(config)
+    det = build_detector(cfg)
+    name = model_name(cfg)
+    t0 = time.perf_counter()
+    programs = export_inference(det, seeded_weights(det, seed=0), BATCH,
+                                platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    program = programs["cuda"]
+    ops = kernel_ops_of(program)
+    print(f"[artifact] {name}: exported for cuda in {export_s:.2f} s; the "
+          f"graph calls the kernels' ops {ops}", flush=True)
+    if ops != per_request:
+        fail(f"{name} artifact: the exported graph calls {ops}, expected "
+             f"{per_request}")
+    fn = make_serving_fn(det)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [synthetic_request(gen, det.canvas)
+                for _ in range(1 + TIMED_REQUESTS)]
+    with tempfile.TemporaryDirectory(prefix="aldi_smoke_artifact_") as tmp:
+        t0 = time.perf_counter()
+        save_artifact(tmp, programs, det, cfg, BATCH)
+        save_s = time.perf_counter() - t0
+        del programs, program
+        size = sum(os.path.getsize(os.path.join(tmp, f))
+                   for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        model = load_artifact(tmp)
+        load_s = time.perf_counter() - t0
+    if model.platform != "cuda" or model.meta["platforms"] != ["cuda"]:
+        fail(f"{name} artifact: loaded {model.platform}, platforms "
+             f"{model.meta['platforms']}")
+    t0 = time.perf_counter()
+    model(*requests[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    fn(*requests[0])
+    copies = artifact_level_copies(model, *requests[0])
+    torch.cuda.synchronize()
+    print(f"[artifact] {name}: pyramid levels the loaded graph copies "
+          f"before K2: {copies or 'none'}", flush=True)
+    if copies:
+        fail(f"{name} artifact: the loaded graph copies pyramid levels "
+             f"before K2: {copies}")
+
+    for k in kernels:
+        k.launches = 0
+    latencies, outs, n_det = [], [], 0
+    for images, sizes in requests[1:]:
+        t0 = time.perf_counter()
+        out = model(images, sizes)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        n_det += check_detections(out, sizes, det.num_classes,
+                                  cfg.TEST.DETECTIONS_PER_IMAGE)
+        outs.append(out)
+    launches = {k.name: k.launches for k in kernels}
+    want = {k.name: n * TIMED_REQUESTS for k, n in zip(
+        kernels, (per_request.get(k.name, 0) for k in kernels))}
+    if launches != want:
+        fail(f"{name} artifact: {TIMED_REQUESTS} requests launched "
+             f"{launches}, expected {want}")
+    eager = []
+    for (images, sizes), out in zip(requests[1:], outs):
+        t0 = time.perf_counter()
+        ref = fn(images, sizes)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3)
+        diff = outputs_differ(out, ref)
+        if diff:
+            fail(f"{name} artifact: outputs differ from the eager serving "
+                 f"path on the same request: {diff}")
+    print(f"[artifact] {name}, {BATCH} x {det.canvas[0]}x{det.canvas[1]} "
+          f"{str(det.dtype).split('.')[-1]}: export {export_s:.2f} s, save "
+          f"{save_s:.2f} s ({size / 1e6:.1f} MB on disk), load {load_s:.2f} "
+          f"s, warm-up request {warm_ms:.1f} ms; {TIMED_REQUESTS} requests: "
+          f"artifact ms {fmt(latencies)} (median {median(latencies):.2f}), "
+          f"eager ms {fmt(eager)} (median {median(eager):.2f}); {n_det} "
+          f"valid detections, every output bitwise equal to eager; launches "
+          f"{launches}; card {card}", flush=True)
+    images, sizes = requests[-1]
+    for label, call, ms in (("artifact", model, median(latencies)),
+                            ("eager", fn, median(eager))):
+        traced = device_busy(lambda: call(images, sizes))
+        if traced is None:
+            print(f"[artifact] {name}, traced {label} request: device busy "
+                  "not measured (the profiler saw no device events)")
+            continue
+        busy, _, per_kernel = traced
+        print(f"[artifact] {name}, traced {label} request: device busy "
+              f"{busy:.2f} ms of the {ms:.2f} ms median, idle share "
+              f"{max(0.0, 1 - busy / ms):.3f}, "
+              f"{sum(n for _, n in per_kernel.values())} device kernels and "
+              "copies", flush=True)
+    del det, fn, model, requests, outs
+    gc.collect()  # the programs' graphs are reference cycles
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tiny_artifact_check():
+    """The tiny float32 R50-FPN of ``tiny_reference_check`` on the card
+    with ``seeded_weights``, exported for ``cpu`` and ``cuda``, saved and
+    loaded: the ``cuda`` program bitwise equal to the eager serving path
+    on the card, and the ``cpu`` program within ``tiny_reference_check``'s
+    tolerances of it (TF32 off)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aldi_tpu_torch.engine.export import (export_inference, load_artifact,
+                                              make_serving_fn, save_artifact)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = tiny_config()
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32)
+    sizes = np.asarray([[128, 128], [100, 120]], np.int32)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        det = build_detector(cfg)
+        programs = export_inference(det, seeded_weights(det, seed=0), 2)
+        eager = make_serving_fn(det)(images, sizes)
+        with tempfile.TemporaryDirectory(prefix="aldi_smoke_tiny_") as tmp:
+            save_artifact(tmp, programs, det, cfg, 2)
+            models = {p: load_artifact(tmp, platform=p)
+                      for p in ("cpu", "cuda")}
+        got = {p: m(images, sizes) for p, m in models.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if sorted(programs) != ["cpu", "cuda"]:
+        fail(f"tiny artifact: export_inference on a card wrote "
+             f"{sorted(programs)}, expected cpu and cuda")
+    diff = outputs_differ(got["cuda"], eager)
+    if diff:
+        fail(f"tiny artifact: the cuda program differs from eager: {diff}")
+    cpu, on_card = ({k: v.cpu() for k, v in got[p].items()}
+                    for p in ("cpu", "cuda"))
+    m = on_card["valid"]
+    if not torch.equal(cpu["valid"], m) or not m.any():
+        fail("tiny artifact: valid detections differ between the cpu and "
+             "the cuda program")
+    box_err = (cpu["boxes"][m] - on_card["boxes"][m]).abs().max().item()
+    score_err = (cpu["scores"][m] - on_card["scores"][m]).abs().max().item()
+    same_cls = torch.equal(cpu["classes"][m], on_card["classes"][m])
+    print(f"[artifact] tiny float32 R26-FPN: the cuda program equals eager "
+          f"bitwise; cpu vs cuda program: {int(m.sum())} detections, boxes "
+          f"max abs err {box_err:.3g} (tol 1e-3), scores {score_err:.3g} "
+          f"(tol 1e-4), classes equal: {same_cls}", flush=True)
+    if box_err > 1e-3 or score_err > 1e-4 or not same_cls:
+        fail("tiny artifact: the cpu and cuda programs disagree")
 
 
 class KernelLaunches:
@@ -2155,7 +2410,16 @@ def main():
     with tiny_vit():
         tiny_reference_check(VIT_ALDI)
 
-    # -- 4. training phase: each DAOD step through its entry points
+    # -- 4. artifact phase: each detector exported, saved, loaded, served
+    artifact_launches = {
+        "R50-FPN": artifact_phase(card, FLAGSHIP, [roi_align_fwd],
+                                  {"roi_align_fwd": 1}),
+        "ViTDet-B": artifact_phase(card, VIT_ALDI,
+                                   [roi_align_fwd, flash_attn_fwd],
+                                   {"roi_align_fwd": 1, "flash_attn_fwd": 4})}
+    tiny_artifact_check()
+
+    # -- 5. training phase: each DAOD step through its entry points
     launches, step_kernels, _ = training_phase(card, flagship_kernels)
     torch.cuda.empty_cache()
     tiny_train_reference_check()
@@ -2165,7 +2429,7 @@ def main():
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
 
-    # -- 5. trainer phase: the training CLI at the published batch
+    # -- 6. trainer phase: the training CLI at the published batch
     trainer_launches, eval_launches, recorded = trainer_phase(
         card, flagship_kernels)
     # K1 and K2 held against their plain versions at the trainer's first
@@ -2174,7 +2438,7 @@ def main():
     del recorded
     torch.cuda.empty_cache()
 
-    # -- 6. result lines. ``launches``: K1/K2 from the flagship's timed
+    # -- 7. result lines. ``launches``: K1/K2 from the flagship's timed
     # training steps, K3a/K3b from ViTDet-B's; ``launches_by_path`` has
     # every path's count (K2's forward and K3a also serve). The other
     # numbers: the kernel phase's, at the paths' shapes (K2's forward on a
@@ -2187,7 +2451,8 @@ def main():
                "R50-FPN trainer": trainer_launches,
                "R50-FPN eval": {"roi_align_fwd":
                                 eval_launches["roi_align_fwd"]},
-        **{f"{m} serving": v for m, v in serving_launches.items()}}
+        **{f"{m} serving": v for m, v in serving_launches.items()},
+        **{f"{m} artifact": v for m, v in artifact_launches.items()}}
     print(f"[card] {card}")
     entries = []
     for k in vit_kernels:

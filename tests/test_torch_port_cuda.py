@@ -13,7 +13,10 @@ bfloat16 one bf16 ulp of the value
 tiny detector on the card against the CPU in float32 with TF32 off, 1e-3 on
 box coordinates of up to 128 px and 1e-4 on scores, and the tiny training
 step 1e-4 relative on losses and 1e-5 on parameters (convolutions sum in
-another order on each device).
+another order on each device); the kernels' custom ops against their
+wrappers' direct results exactly (the same launch), and the tiny
+detector's exported ``cuda`` program against the eager serving path
+exactly, its ``cpu`` program with the tiny detector's tolerances.
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ import pytest
 import torch
 
 from aldi_tpu_torch.data.strong_aug import strong_aug_draws, strong_augment
-from aldi_tpu_torch.ops import _build
+from aldi_tpu_torch.ops import _build, custom_ops
 from aldi_tpu_torch.ops.anchors import AnchorGenerator
 from aldi_tpu_torch.ops.flash_attn import (attn_delta, flash_attention_relpos,
                                            flash_attn_plain)
@@ -34,7 +37,7 @@ from aldi_tpu_torch.ops.roi_align import (box_levels, roi_align_batched,
                                           roi_align_plain_backward)
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 from chip_smoke import (VIT_ALDI, attn_inputs, check_attn,
-                        tiny_reference_check,
+                        tiny_artifact_check, tiny_reference_check,
                         tiny_train_reference_check, tiny_vit)
 from torch_port_match_cases import CASES as MATCH_CASES
 from torch_port_match_cases import match_case
@@ -103,6 +106,70 @@ def test_tiny_detector_on_card_matches_cpu(card):
     against the same one on the CPU, TF32 off; fails (SystemExit) on
     disagreement."""
     tiny_reference_check()
+
+
+def test_tiny_artifact_on_card_matches_eager(card):
+    """chip_smoke's artifact check: the tiny detector's ``cuda`` program
+    bitwise equal to the eager serving path on the card, its ``cpu``
+    program within the reference tolerances; fails (SystemExit)
+    otherwise."""
+    tiny_artifact_check()
+
+
+def _op_args(card, name):
+    """Arguments of each kernel's custom op on the card, at small shapes the
+    kernels take (head dim 64 for K3)."""
+    anchors = _anchors(card)
+    gt, valid = _gt(card, 2, 12, seed=51)
+    if name in ("match_iou", "low_quality_mask"):
+        best = match_iou_plain(anchors, gt, valid)[2]
+        return (anchors, gt, valid) + ((best,) if name == "low_quality_mask"
+                                       else ())
+    if name.startswith("roi_align"):
+        feats, boxes, valid = _roi_inputs(52, c=64)
+        f = [torch.from_numpy(x).to(card, torch.bfloat16) for x in feats]
+        bx = torch.from_numpy(boxes).to(card)
+        levels = box_levels(bx, torch.from_numpy(valid).to(card), STRIDES)
+        if name == "roi_align_fwd":
+            return f, bx, levels, STRIDES, 7, 2
+        grad = torch.randn((3, 64, 7, 7, 64), device=card).to(torch.bfloat16)
+        return (grad, bx, levels, [d for x in f for d in x.shape[1:3]],
+                torch.bfloat16, STRIDES, 2)
+    q, k, v, bh, bw, dout = attn_inputs(torch.bfloat16, 53, 4, 16, 24)
+    if name == "flash_attn_fwd":
+        return q, k, v, bh, bw, 0.125, 16, 24
+    out, lse = flash_attn_plain(q, k, v, bh, bw, 0.125, 16, 24)
+    return (q, k, v, bh, bw, lse, attn_delta(out, dout), dout, 0.125, 16,
+            24)
+
+
+KERNEL_OPS = {"match_iou": match_iou, "low_quality_mask": low_quality_mask,
+              "roi_align_fwd": roi_align_fwd, "roi_align_bwd": roi_align_bwd,
+              "flash_attn_fwd": flash_attn_fwd,
+              "flash_attn_bwd": flash_attn_bwd}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_OPS))
+def test_kernel_op_on_card_equals_its_wrapper(card, name):
+    """Each custom op on CUDA tensors launches its kernel once and returns
+    what the wrapper returns when called directly, bitwise (no kernel sums
+    with atomics in an order that varies)."""
+    wrapper = KERNEL_OPS[name]
+    args = _op_args(card, name)
+    if name == "roi_align_bwd":  # the wrapper takes the level shapes paired
+        direct = (*args[:3], list(zip(args[3][::2], args[3][1::2])),
+                  *args[4:])
+    else:
+        direct = args
+    before = wrapper.launches
+    got = getattr(custom_ops, name)(*args)
+    assert wrapper.launches == before + 1
+    want = wrapper(*direct)
+    torch.cuda.synchronize()
+    got, want = ([got], [want]) if torch.is_tensor(got) else (got, want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), name
 
 
 def _anchors(card, canvas=(256, 512)):

@@ -1,5 +1,6 @@
 """Port parity of the ops: boxes, anchors, NMS and ROIAlign
-(``aldi_tpu_torch/ops`` against ``aldi_tpu/ops``), on the CPU.
+(``aldi_tpu_torch/ops`` against ``aldi_tpu/ops``), on the CPU; and the
+kernels' custom ops (``ops/custom_ops.py``) under ``torch.library.opcheck``.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX side runs un-jitted. Tolerances: elementwise float32 arithmetic that
@@ -21,6 +22,7 @@ from aldi_tpu.ops import roi_align as jax_roi
 from aldi_tpu.ops.pallas_roi_align import roi_align_pallas_batched
 from aldi_tpu_torch.ops import anchors as port_anchors
 from aldi_tpu_torch.ops import boxes as port_boxes
+from aldi_tpu_torch.ops import custom_ops, flash_attn, match_kernel
 from aldi_tpu_torch.ops import nms as port_nms
 from aldi_tpu_torch.ops import roi_align as port_roi
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_fwd
@@ -138,6 +140,48 @@ def test_top_k_by_score_matches_jax():
         np.testing.assert_array_equal(gb[i], wb)
 
 
+class _Nms(torch.nn.Module):
+    def forward(self, boxes, scores, valid):
+        return port_nms.nms_keep_mask(boxes, scores, valid, 0.5)
+
+
+def _nms_chain(g=2, n=48):
+    """Boxes in a chain, each overlapping the next by IoU 0.6 and the one
+    after by 0.33, scores falling along it: greedy NMS keeps every other
+    box, and the fixed-point loop needs about N steps (several bodies of
+    ``_CHECK_EVERY``) to get there."""
+    x0 = np.arange(n, dtype=np.float32) * 2.5
+    boxes = np.stack([x0, np.zeros(n), x0 + 10.0, np.full(n, 10.0)], -1)
+    scores = np.linspace(1.0, 0.1, n, dtype=np.float32)
+    return (np.repeat(boxes[None], g, 0).astype(np.float32),
+            np.repeat(scores[None], g, 0), np.ones((g, n), bool))
+
+
+@pytest.mark.parametrize("case", ["random", "tied", "chain"])
+def test_nms_while_loop_form_equals_eager(case):
+    """``nms_keep_mask`` through a tiny ``torch.export`` runs its
+    fixed-point loop as ``while_loop``; the exported mask equals the eager
+    loop's and JAX's, on random and on exactly tied scores, and on a chain
+    that takes the loop through several bodies."""
+    boxes, scores, valid = (_nms_chain() if case == "chain" else
+                            _nms_inputs(3, tied=case == "tied"))
+    args = (t(boxes), t(scores), t(valid))
+    program = torch.export.export(_Nms(), args, strict=False)
+    assert any("while_loop" in str(n.target)
+               for n in program.graph.nodes if n.op == "call_function")
+    got = program.module()(*args)
+    want = port_nms.nms_keep_mask(*args, 0.5)
+    print(f"NMS while_loop form vs eager ({case}): "
+          f"{int((got != want).sum())} of {want.numel()} flags differ")
+    assert torch.equal(got, want)
+    for i in range(boxes.shape[0]):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(
+            jax_nms.nms_keep_mask(jnp.asarray(boxes[i]), jnp.asarray(
+                scores[i]), jnp.asarray(valid[i]), 0.5)), err_msg=f"row {i}")
+    if case == "chain":
+        assert torch.equal(got[0], torch.arange(48) % 2 == 0)
+
+
 # ------------------------------------------------------------- ROIAlign
 STRIDES = [4, 8, 16, 32]
 
@@ -224,3 +268,69 @@ def test_roi_align_kernel_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_fwd([t(f) for f in feats], t(boxes), levels, STRIDES)
     assert roi_align_fwd.launches == 0
+
+
+# ---------------------------------------------------- the kernels' ops
+def _op_cases():
+    """Tiny CPU arguments of each of the six custom ops; the differentiable
+    inputs of the two forward ops require grad, so their autograd is
+    checked too."""
+    rng = np.random.default_rng(17)
+    anchors = t(random_boxes(rng, (40,), size=60.0))
+    gt = t(random_boxes(rng, (2, 5), size=60.0))
+    gt_valid = t(np.array([[1, 1, 0, 1, 0], [0, 1, 1, 1, 1]], bool))
+    best = match_kernel.match_iou_plain(anchors, gt, gt_valid)[2]
+    feats, boxes, valid = _roi_inputs(18, b=2, p=6, c=4, canvas=(48, 64))
+    feats = [t(f).requires_grad_(True) for f in feats]
+    boxes = t(boxes)
+    levels = port_roi.box_levels(boxes, t(valid), STRIDES)
+    shapes = [d for f in feats for d in f.shape[1:3]]
+    qkv = [t(rng.standard_normal((2, 12, 8)).astype(np.float32))
+           for _ in range(4)]
+    bh = t(rng.standard_normal((2, 12, 3)).astype(np.float32) * 0.2)
+    bw = t(rng.standard_normal((2, 12, 4)).astype(np.float32) * 0.2)
+    out, lse = flash_attn.flash_attn_plain(*qkv[:3], bh, bw, 0.35, 3, 4)
+    return {
+        "match_iou": (anchors, gt, gt_valid),
+        "low_quality_mask": (anchors, gt, gt_valid, best),
+        "roi_align_fwd": (feats, boxes, levels, STRIDES, 7, 2),
+        "roi_align_bwd": (t(rng.standard_normal((2, 6, 7, 7, 4)).astype(
+            np.float32)), boxes, levels, shapes, torch.float32, STRIDES, 2),
+        "flash_attn_fwd": (*(x.clone().requires_grad_(True)
+                             for x in (*qkv[:3], bh, bw)), 0.35, 3, 4),
+        "flash_attn_bwd": (*qkv[:3], bh, bw, lse,
+                           flash_attn.attn_delta(out, qkv[3]), qkv[3], 0.35,
+                           3, 4),
+    }
+
+
+@pytest.mark.parametrize("name", ["match_iou", "low_quality_mask",
+                                  "roi_align_fwd", "roi_align_bwd",
+                                  "flash_attn_fwd", "flash_attn_bwd"])
+def test_kernel_op_passes_opcheck(name):
+    """``torch.library.opcheck`` of each kernel's custom op on CPU tensors
+    (schema, fake implementation, autograd registration, AOT dispatch), and
+    the op's result equal to the plain version it dispatches to."""
+    args = _op_cases()[name]
+    op = getattr(custom_ops, name)
+    result = torch.library.opcheck(op, args)
+    print(f"opcheck {name}: {result}")
+    assert set(result.values()) == {"SUCCESS"}
+    plain = {"match_iou": match_kernel.match_iou_plain,
+             "low_quality_mask": match_kernel.low_quality_mask_plain,
+             "roi_align_fwd": port_roi.roi_align_plain,
+             "flash_attn_fwd": flash_attn.flash_attn_plain,
+             "flash_attn_bwd": flash_attn.flash_attn_plain_backward}
+    if name == "roi_align_bwd":
+        got = op(*args)
+        want = port_roi.roi_align_plain_backward(
+            args[0], args[1], args[2],
+            list(zip(args[3][::2], args[3][1::2])), *args[4:])
+    else:
+        with torch.no_grad():
+            got, want = op(*args), plain[name](*args)
+    got, want = ([got], [want]) if torch.is_tensor(got) else (got, want)
+    err = max(max_err(a.detach().float(), b.detach().float())
+              for a, b in zip(got, want))
+    print(f"{name} op vs plain version: max abs err {err:.3g}")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

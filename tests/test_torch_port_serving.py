@@ -138,7 +138,8 @@ def test_port_imports_no_jax():
             "data/loader.py", "engine/coco_eval.py", "engine/evaluator.py",
             "engine/checkpoint.py", "engine/checkpoint_convert.py",
             "engine/trainer.py", "tools/train_net.py",
-            "tools/efficacy.py"} <= names
+            "tools/efficacy.py", "ops/custom_ops.py", "engine/export.py",
+            "tools/export_model.py"} <= names
     banned = ("jax", "jaxlib", "flax", "aldi_tpu", "aldi_native")
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]

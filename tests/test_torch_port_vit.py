@@ -309,8 +309,8 @@ def test_vitdet_l_builds_from_the_same_code():
 
 def test_vitdet_defaults_to_cuda_and_kernels_refuse_cpu(monkeypatch):
     """Without a GPU the ViTDet detector's default device raises; the
-    kernels' wrappers take CUDA tensors only (the CPU path is
-    ``FlashAttentionRelPos``'s choice, never the wrappers')."""
+    kernels' wrappers take CUDA tensors only (the CPU path is the
+    dispatcher's choice for the custom op, never the wrappers')."""
     cfg = vitdet_head_config(tiny_cfg(port_get_cfg))
     q = torch.zeros((1, 64, 64))
     b = torch.zeros((1, 64, 8))
