@@ -17,7 +17,15 @@ state dict for ``models.rcnn.RCNN``, whose names follow detectron2:
   deconv [kH, kW, in, out] -> ``ConvTranspose2d`` [in, out, kH, kW] with
   the spatial flip;
 - the ViTDet heads: ``box_head/conv{i}[_norm]`` -> ``conv{i}[.norm]``,
-  ``rpn_head/conv{i}``.
+  ``rpn_head/conv{i}``;
+- the ConvNeXt (``backbone/downsample{i}_{conv,norm}``,
+  ``stage{i}_block{j}/{dwconv,norm,pwconv1,pwconv2,gamma}``,
+  ``out_norm{i}``) -> the reference's ``backbone.bottom_up.
+  {downsample_layers.{i}.{slot},stages.{i}.{j}.*,norm{i}}`` (slot 0 the
+  conv for i = 0, the norm after), the depthwise kernel [7, 7, 1, C] ->
+  [C, 1, 7, 7];
+- the discriminators of domain alignment: ``img_align/conv{i}``,
+  ``img_align/linear``, ``ins_align/linear{i}``, ``ins_align/linear_out``.
 
 The same function converts a JAX ``TrainState``'s EMA teacher, given
 ``{"params": state.ema_params, "frozen": state.frozen}`` (the teacher
@@ -30,9 +38,12 @@ detectron2 zoo ``.pkl`` already carries the port's (detectron2's) names, so
 ``reference_state_dict_to_port`` converts only the layouts the port keeps
 differently: the box head's ``fc1`` input from detectron2's channel-major
 (c, h, w) flattening to (h, w, c), and a ViT ``pos_embed`` stored as tokens
-[1, p*p (+1 class token), D] to the grid [1, p, p, D]. Loading is
-non-strict, as detectron2's: missing, unused and shape-mismatched keys are
-logged and skipped.
+[1, p*p (+1 class token), D] to the grid [1, p, p, D]; a ConvNeXt's names
+and layouts are the reference's. The discriminators are not read from a
+reference file (``aldi_tpu/engine/checkpoint_convert.py:172-174`` skips
+them too): they keep their initial weights. Loading is non-strict, as
+detectron2's: missing, unused and shape-mismatched keys are logged and
+skipped.
 """
 
 import pickle
@@ -47,8 +58,8 @@ _TOP = {
     "box_head": "roi_heads.box_head",
     "box_predictor": "roi_heads.box_predictor",
 }
-# domain discriminators: training-only, never run by inference
-_TRAIN_ONLY = ("img_align", "ins_align")
+# domain discriminators: not read from reference files
+_DISCRIMINATORS = ("img_align.", "ins_align.")
 # SimpleFeaturePyramid: JAX ``simfp_{i}_{sub}`` -> detectron2's Sequential
 # slot in ``simfp_{i + 2}``
 _SFP_SLOTS = {
@@ -88,11 +99,28 @@ def _vit_name(path) -> str:
     return f"{base}.{sub}.{leaf}"  # norm1 / norm2
 
 
+def _convnext_name(path) -> str:
+    mod, leaf = path[1], _LEAF.get(path[-1], path[-1])
+    base = "backbone.bottom_up"
+    if mod.startswith("downsample"):  # downsample{i}_{conv,norm}
+        i, kind = mod[len("downsample"):].split("_")
+        slot = int((kind == "conv") == (i != "0"))
+        return f"{base}.downsample_layers.{i}.{slot}.{leaf}"
+    if mod.startswith("out_norm"):
+        return f"{base}.norm{mod[len('out_norm'):]}.{leaf}"
+    stage, block = mod[len("stage"):].split("_block")
+    sub = "" if path[2] == "gamma" else f".{leaf}"
+    return f"{base}.stages.{stage}.{block}.{path[2]}{sub}"
+
+
 def _port_name(path) -> str:
     top, leaf = path[0], path[-1]
     if top == "backbone" and (path[1] == "pos_embed" or path[1].startswith(
             ("patch_embed", "block"))):
         return _vit_name(path)
+    if top == "backbone" and path[1].startswith(
+            ("downsample", "stage", "out_norm")):
+        return _convnext_name(path)
     if top == "sfp":  # simfp_{i}_{sub}
         i, sub = int(path[1][len("simfp_")]), path[1][len("simfp_0_"):]
         return (f"backbone.simfp_{i + 2}.{_SFP_SLOTS[i][sub]}."
@@ -116,6 +144,8 @@ def _port_name(path) -> str:
         return f"{_TOP[top]}.{path[1][:-len('_norm')]}.norm.{leaf}"
     if top in _TOP:
         return f"{_TOP[top]}.{path[1]}.{leaf}"
+    if top in ("img_align", "ins_align"):
+        return f"{top}.{path[1]}.{leaf}"
     raise KeyError(f"no counterpart in the port for {'/'.join(path)}")
 
 
@@ -124,8 +154,6 @@ def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     out = {}
     for coll in ("params", "frozen"):
         for path, arr in _flatten(variables.get(coll, {})):
-            if path[0] in _TRAIN_ONLY:
-                continue
             a = np.asarray(arr, dtype=np.float32)
             if path[-1] == "kernel" and "deconv" in path[-2]:
                 # [kH, kW, in, out] -> [in, out, kH, kW], spatially flipped
@@ -197,10 +225,14 @@ def reference_state_dict_to_port(sd: dict, target: Dict[str, torch.Tensor],
     dict over ``target``'s keys (the port module's ``state_dict()``): each
     key the reference has, in the port's layout (``convert_layouts=False``:
     already in it, as in the port's own checkpoints) and ``target``'s
-    dtype; each other key keeps ``target``'s tensor. Missing, unused and
+    dtype; each other key keeps ``target``'s tensor. A reference file's
+    discriminators (``convert_layouts``) are skipped. Missing, unused and
     shape-mismatched keys are logged and skipped."""
     out, used, missing, mismatched = {}, set(), [], []
     for name, want in target.items():
+        if convert_layouts and name.startswith(_DISCRIMINATORS):
+            out[name] = want
+            continue
         if name not in sd:
             missing.append(name)
             out[name] = want

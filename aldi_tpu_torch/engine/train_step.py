@@ -1,13 +1,15 @@
 """The ALDI++ DAOD training step.
 
 Port of ``aldi_tpu/engine/train_step.py:100-393`` for the R-CNN family
-(ResNet-FPN and ViTDet backbones), with
+(ResNet-FPN, ConvNeXt-FPN and ViTDet backbones), with
 the same stream logic: the EMA update before the step; the teacher pass
 (pseudo-labels and distill targets, no gradient); strong views of the
 labeled and unlabeled batches derived on the device; the student's streams
-(``labeled_weak``, ``labeled_strong`` and the distill stream on the
-pseudo-labels), each weighted ``n_s / n_eff`` as the reference's gradient
-accumulation weighs them; one ``backward()`` per stream
+(``labeled_weak``, ``labeled_strong``, with DOMAIN_ADAPT.ALIGN the
+target_weak stream of alignment losses on the unlabeled weak images, and
+the distill stream on the pseudo-labels), each weighted ``n_s / n_eff`` as
+the reference's gradient accumulation weighs them (``n_eff`` counts the
+unlabeled batch once); one ``backward()`` per stream
 (``SOLVER.BACKWARD_AT_END: false``) or one for their sum (true); the
 optimizer step. With ``TPU.GRAD_ACCUM = k`` (``:334-378``) each stream
 splits into k equal chunks after the teacher pass and the strong views
@@ -68,6 +70,8 @@ def stream_flags(cfg) -> SimpleNamespace:
         weak="labeled_weak" in contents,
         strong="labeled_strong" in contents,
         distill=has_unlabeled and (do_hard or do_soft),
+        align=cfg.DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED
+        or cfg.DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED,
         soft=do_soft,
         teacher_anchors=d.OBJ_ENABLED or d.RPN_REG_ENABLED,
         ema=cfg.EMA.ENABLED,
@@ -112,9 +116,12 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
               n_unlabeled: int) -> dict:
     """Every random draw of one step, made from ``gen`` on its device and
     returned on the detector's: per student stream the anchor sampler's and
-    the ROI sampler's draws (and, for a ViT backbone, the drop-path keep
-    masks), the teacher's anchor sampler's draws, and the strong
-    augmentation's draws per batch. With ``TPU.GRAD_ACCUM = k > 1`` each
+    the ROI sampler's draws (and, for a trunk with drop path, a ViT or a
+    ConvNeXt, its keep masks), the teacher's anchor sampler's draws, and
+    the strong augmentation's draws per batch. The target_weak stream of
+    alignment (``"align"``) has no RPN loss: it takes the drop-path masks
+    and, with instance alignment, the ROI sampler's draws over the
+    proposals and one empty gt slot. With ``TPU.GRAD_ACCUM = k > 1`` each
     student stream's entry is a list of k chunks' draws."""
     cfg = detector.cfg
     s = stream_flags(cfg)
@@ -131,24 +138,34 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
         return subsample_indices_draws(gen, (b,), n_anchors, k_rpn,
                                        rpn["positive_fraction"])
 
-    net = getattr(detector.module.backbone, "net", None)  # a ViT trunk
-    if net is not None:
-        keep = torch.tensor([1.0 - blk.drop_path for blk in net.blocks],
-                            device=gen.device)
+    keep = detector.module.backbone.keep_rates()
+    if keep is not None:
+        keep = keep.to(gen.device)
 
-    def chunk(b):
-        out = {"rpn": anchors(b),
-               "roi": sample_proposals_draws(gen, (b,), n_cand)}
-        if net is not None:
-            # drop-path keep masks [2 (attention, MLP), depth, B]
-            out["drop"] = torch.rand((2, len(keep), b), generator=gen,
-                                     device=gen.device) < keep[:, None]
+    def drop(out, b):
+        # drop-path keep masks [*keep.shape, B]: [2 (attention, MLP),
+        # depth, B] for a ViT, [sum(depths), B] for a ConvNeXt
+        if keep is not None:
+            out["drop"] = torch.rand(keep.shape + (b,), generator=gen,
+                                     device=gen.device) < keep[..., None]
         return out
 
-    def student(b):
+    def chunk(b):
+        return drop({"rpn": anchors(b),
+                     "roi": sample_proposals_draws(gen, (b,), n_cand)}, b)
+
+    def align_chunk(b):
+        out = {}
+        if cfg.DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED:
+            n = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + int(
+                cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT)
+            out["roi"] = sample_proposals_draws(gen, (b,), n)
+        return drop(out, b)
+
+    def student(b, make=chunk):
         if accum == 1:
-            return chunk(b)
-        return [chunk(b // accum) for _ in range(accum)]
+            return make(b)
+        return [make(b // accum) for _ in range(accum)]
 
     out = {}
     if s.weak:
@@ -158,6 +175,8 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
         out["aug_labeled"] = strong_aug_draws(
             gen, n_labeled, canvas, aug.LABELED_INCLUDE_RANDOM_ERASING,
             aug.LABELED_MIC_AUG, aug.MIC_BLOCK_SIZE)
+    if s.align:
+        out["align"] = student(n_unlabeled, align_chunk)
     if s.distill:
         if s.teacher_anchors:
             out["teacher"] = anchors(n_unlabeled)
@@ -200,12 +219,14 @@ def make_train_step(cfg, detector):
     """The step ``(state, batch, draws) -> (state, metrics)`` for this
     config's stream composition. Metrics carry the weighted losses under
     the JAX package's keys (``loss_*_source_strong``, ``loss_*_distill``,
-    ...), ``total_loss`` and, with distillation, ``num_pseudo_labels``."""
+    ``loss_da_*_target_weak``, ...), ``total_loss`` and, with distillation,
+    ``num_pseudo_labels``."""
     check_trainable(cfg)
     s = stream_flags(cfg)
     accum = grad_accum(cfg)
     active = [n for n, on in (("weak", s.weak), ("strong", s.strong),
-                              ("distill", s.distill)) if on]
+                              ("align", s.align), ("distill", s.distill))
+              if on]
     threshold = cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD
     max_gt = cfg.TPU.MAX_GT
     aug = cfg.AUG
@@ -228,7 +249,7 @@ def make_train_step(cfg, detector):
         lab, uw = batch.get("labeled"), batch.get("unlabeled")
         n_ls = lab["image"].shape[0] if (s.weak or s.strong) else 0
         n_lw = n_ls if s.weak else 0
-        n_uw = uw["image"].shape[0] if s.distill else 0
+        n_uw = uw["image"].shape[0] if (s.align or s.distill) else 0
         n_eff = max(n_lw + (n_ls if s.strong else 0) + n_uw, 1)
 
         ctx = pseudo = None
@@ -253,7 +274,7 @@ def make_train_step(cfg, detector):
         gt = (Instances(lab["boxes"], lab["classes"], lab["valid"])
               if lab is not None else None)
         full = {"lab": lab, "gt": gt, "ls": ls_images if s.strong else None,
-                "uw": uw if s.distill else None,
+                "uw": uw if (s.align or s.distill) else None,
                 "us": us_images if s.distill else None,
                 "pseudo": pseudo, "ctx": ctx}
 
@@ -266,13 +287,18 @@ def make_train_step(cfg, detector):
             if name == "weak":
                 losses, _ = detector.forward_train(
                     student, m["lab"]["image"], m["lab"]["sizes"], m["gt"],
-                    d["weak"])
+                    d["weak"], do_align=s.align, domain_label=1.0)
                 return weighted(losses, "source_weak", n_lw / n_eff)
             if name == "strong":
                 losses, _ = detector.forward_train(
                     student, m["ls"], m["lab"]["sizes"], m["gt"],
-                    d["strong"])
+                    d["strong"], do_align=s.align, domain_label=1.0)
                 return weighted(losses, "source_strong", n_ls / n_eff)
+            if name == "align":
+                losses = detector.forward_domain_align(
+                    student, m["uw"]["image"], m["uw"]["sizes"], d["align"],
+                    domain_label=0.0)
+                return weighted(losses, "target_weak", n_uw / n_eff)
             std, s_aux = detector.forward_train(
                 student, m["us"], m["uw"]["sizes"], m["pseudo"],
                 d["distill"])

@@ -28,9 +28,17 @@ class FPN(nn.Module):
                 out_channels, out_channels, 3, padding=1,
                 compute_dtype=compute_dtype))
 
-    def forward(self, x):
-        """x NCHW -> [p2, ..., p6] NCHW, finest first."""
-        bottom_up = self.bottom_up(x)
+    def keep_rates(self):
+        """The bottom-up net's drop-path keep rates (None: it has no drop
+        path)."""
+        rates = getattr(self.bottom_up, "keep_rates", None)
+        return rates() if rates else None
+
+    def forward(self, x, drop=None):
+        """x NCHW -> [p2, ..., p6] NCHW, finest first. ``drop``: the
+        bottom-up net's drop-path keep masks, or None."""
+        bottom_up = (self.bottom_up(x) if drop is None
+                     else self.bottom_up(x, drop))
         feats = [bottom_up[f] for f in self.in_features]
         n = len(feats)
         merged = getattr(self, f"fpn_lateral{n + 1}")(feats[-1])

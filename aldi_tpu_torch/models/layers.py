@@ -111,3 +111,33 @@ class ConvNorm(Conv2d):
 
     def forward(self, x):
         return self.norm(super().forward(x))
+
+
+def lecun_normal(weight, fan_in, gen):
+    """flax ``lecun_normal``: truncated normal (+-2 std) with the variance
+    1/fan_in after the truncation."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                              generator=gen)
+
+
+class _DenseInit:
+    """flax ``nn.Dense``/``nn.Conv`` default initializers."""
+
+    def init_weights(self, gen):
+        lecun_normal(self.weight, self.weight[0].numel(), gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class DenseLinear(_DenseInit, Linear):
+    pass
+
+
+class DenseConv2d(_DenseInit, Conv2d):
+    pass
+
+
+class DenseConvNorm(_DenseInit, ConvNorm):
+    pass

@@ -1,32 +1,39 @@
 """GeneralizedRCNN: parameter module + train/inference orchestrator.
 
-Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN and the ViTDet-B/L
-backbones (``MODEL.BACKBONE.NAME``, ``:130-193``): the serving path
-(``RCNNDetector.forward_inference``, ``:694-726``) and the DAOD training
-interface (``forward_train``, ``forward_teacher``,
-``forward_teacher_ctx``, ``distill_losses``, ``:379-659``). ``RCNN`` holds
+Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN, ConvNeXt-FPN and
+ViTDet-B/L backbones (``MODEL.BACKBONE.NAME``, ``:130-193``): the serving
+path (``RCNNDetector.forward_inference``, ``:694-726``) and the DAOD
+training interface (``forward_train``, ``forward_teacher``,
+``forward_teacher_ctx``, ``distill_losses``, ``:379-659``) with
+adversarial domain alignment (``grad_reverse``, the image- and
+instance-level discriminators, ``_align_losses`` and the target_weak
+stream's ``forward_domain_align``, ``:45-94,504-528,662-691``). ``RCNN`` holds
 the weights under detectron2's module names; ``RCNNDetector`` owns the
 config state (anchors for the fixed canvas, thresholds, top-k sizes) and
 drives the stages. The JAX methods take a variables tree first; the
 training methods here take the ``RCNN`` module to run (the student or the
 EMA teacher). Public stage functions keep the JAX package's layouts:
 images [B, H, W, 3] in 0..255, FPN levels NHWC (views of NCHW tensors in
-``channels_last`` memory format), pooled features [B, P, 7, 7, C].
-Domain alignment (``_align_losses``, ``forward_domain_align``) is not
-ported yet. The ViTDet backbones take drop-path keep masks in training
-(``draws["drop"]``); the teacher and serving run without drop path.
+``channels_last`` memory format), pooled features [B, P, 7, 7, C]. The
+ViTDet and ConvNeXt backbones take drop-path keep masks in training
+(``draws["drop"]``, of the shape their ``keep_rates()`` gives); the teacher
+and serving run without drop path.
 """
 
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
 from ..config import compute_dtype, resolve_canvas
 from ..ops.anchors import AnchorGenerator
+from ..ops.losses import bce_with_logits
+from .convnext import ConvNeXt
 from .fpn import FPN
+from .layers import DenseConv2d, DenseLinear
 from .resnet import ResNet
 from .roi_heads import (FastRCNNConvFCHead, FastRCNNOutputLayers, box_pooler,
                         fast_rcnn_inference, fast_rcnn_losses,
@@ -36,19 +43,84 @@ from .rpn import (StandardRPNHead, generate_proposals, label_anchors_sampled,
 from .vit import ViTDetBackbone
 
 VIT_BACKBONES = ("build_vitdet_b_backbone", "build_vitdet_l_backbone")
+CONVNEXT_BACKBONE = "build_convnext_fpn_backbone"
+ALIGN_LEVELS = {"p2": 0, "p3": 1, "p4": 2, "p5": 3, "p6": 4}
 
 _NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Slices still "
                "to port'")
 
 
+class GradReverse(torch.autograd.Function):
+    """The identity forward, the negated gradient backward (the gradient
+    reversal layer of weight -1, reference ``aldi/helpers.py:51-63``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return -grad
+
+
+def grad_reverse(x):
+    return GradReverse.apply(x)
+
+
+class ConvDiscriminator(nn.Module):
+    """NHWC features -> (conv 3x3 VALID -> ReLU) per hidden width -> mean
+    over the pixels -> Linear(1): logits [B, 1] (reference
+    ``aldi/align.py:103-119``)."""
+
+    def __init__(self, in_channels, hidden_dims, compute_dtype):
+        super().__init__()
+        self.depth = len(hidden_dims)
+        for i, d in enumerate(hidden_dims):
+            self.add_module(f"conv{i}", DenseConv2d(
+                in_channels, d, 3, compute_dtype=compute_dtype))
+            in_channels = d
+        self.linear = DenseLinear(in_channels, 1, compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self.depth):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        return self.linear(x.mean(dim=(2, 3)))
+
+
+class FCDiscriminator(nn.Module):
+    """[N, D] features -> (Linear -> ReLU) per hidden width -> Linear(1):
+    logits [N, 1] (reference ``aldi/align.py:121-136``)."""
+
+    def __init__(self, in_features, hidden_dims, compute_dtype):
+        super().__init__()
+        self.depth = len(hidden_dims)
+        for i, d in enumerate(hidden_dims):
+            self.add_module(f"linear{i}", DenseLinear(
+                in_features, d, compute_dtype=compute_dtype))
+            in_features = d
+        self.linear_out = DenseLinear(in_features, 1,
+                                      compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        for i in range(self.depth):
+            x = F.relu(getattr(self, f"linear{i}")(x))
+        return self.linear_out(x)
+
+
 class RCNN(nn.Module):
-    """Parameter container: ``backbone`` (FPN over ResNet, or ViTDet's
-    ``net`` + ``simfp_*``), ``proposal_generator.rpn_head``,
-    ``roi_heads.box_head`` and ``roi_heads.box_predictor``.
+    """Parameter container: ``backbone`` (FPN over ResNet or ConvNeXt, or
+    ViTDet's ``net`` + ``simfp_*``), ``proposal_generator.rpn_head``,
+    ``roi_heads.box_head``, ``roi_heads.box_predictor`` and, with domain
+    alignment, the discriminators ``img_align`` and ``ins_align``.
 
     ``backbone_name`` is MODEL.BACKBONE.NAME; a ViTDet backbone is built
     for the canvas's stride-16 ``grid`` (its global blocks' rel-pos tables
-    have the grid's size)."""
+    have the grid's size); ``convnext`` holds the ConvNeXt's ``depths``,
+    ``dims``, ``drop_path_rate`` and ``layer_scale_init``.
+    ``img_da_hidden_dims`` / ``ins_da_hidden_dims`` (None: that
+    discriminator is off) are the discriminators' hidden widths; their
+    inputs are the pyramid's channels and the box head's features."""
 
     def __init__(self, num_classes, num_cell_anchors,
                  backbone_name="build_resnet_fpn_backbone", depth=50,
@@ -56,13 +128,18 @@ class RCNN(nn.Module):
                  num_fc=2, fc_dim=1024, num_conv=0, conv_dim=256,
                  box_head_norm="", pooler_resolution=7,
                  compute_dtype=torch.float32, freeze_at=0, grid=None,
-                 use_act_checkpoint=True):
+                 use_act_checkpoint=True, convnext=None,
+                 img_da_hidden_dims=None, ins_da_hidden_dims=None):
         super().__init__()
         dt = compute_dtype
         if backbone_name in VIT_BACKBONES:
             self.backbone = ViTDetBackbone(
                 backbone_name.split("_")[2], grid, fpn_out_channels,
                 use_act_checkpoint, dt)
+        elif backbone_name == CONVNEXT_BACKBONE:
+            self.backbone = FPN(ConvNeXt(compute_dtype=dt, **convnext),
+                                out_channels=fpn_out_channels,
+                                compute_dtype=dt)
         else:
             self.backbone = FPN(ResNet(depth, stride_in_1x1, dt, freeze_at),
                                 out_channels=fpn_out_channels,
@@ -77,6 +154,14 @@ class RCNN(nn.Module):
                 fc_dim if num_fc else
                 fpn_out_channels * pooler_resolution ** 2, num_classes, dt),
         })
+        if img_da_hidden_dims is not None:
+            self.img_align = ConvDiscriminator(fpn_out_channels,
+                                               img_da_hidden_dims, dt)
+        if ins_da_hidden_dims is not None:
+            box_dim = fc_dim if num_fc else (
+                (conv_dim if num_conv else fpn_out_channels)
+                * pooler_resolution ** 2)
+            self.ins_align = FCDiscriminator(box_dim, ins_da_hidden_dims, dt)
 
     @staticmethod
     def pyramid_strides():
@@ -85,7 +170,8 @@ class RCNN(nn.Module):
 
 def _check_supported(cfg):
     name = cfg.MODEL.BACKBONE.NAME
-    if name not in ("build_resnet_fpn_backbone",) + VIT_BACKBONES:
+    if name not in ("build_resnet_fpn_backbone", CONVNEXT_BACKBONE) \
+            + VIT_BACKBONES:
         raise NotImplementedError(f"MODEL.BACKBONE.NAME={name} {_NOT_PORTED}")
     d = cfg.MODEL.RESNETS.RES5_DILATION
     if d != 1:
@@ -99,12 +185,6 @@ def check_trainable(cfg):
     if cfg.TPU.RPN_LOSS_IMPL != "sampled":
         raise NotImplementedError(
             f"TPU.RPN_LOSS_IMPL={cfg.TPU.RPN_LOSS_IMPL!r} {_NOT_PORTED}")
-    a = cfg.DOMAIN_ADAPT.ALIGN
-    if a.IMG_DA_ENABLED or a.INS_DA_ENABLED:
-        raise NotImplementedError(
-            "DOMAIN_ADAPT.ALIGN (grad_reverse, the discriminators, "
-            "forward_domain_align) is not ported yet: ROADMAP.md lists it "
-            "under slice 3, domain alignment")
 
 
 class RCNNDetector:
@@ -135,6 +215,7 @@ class RCNNDetector:
                                       device=self.device)
 
         box = cfg.MODEL.ROI_BOX_HEAD
+        cn, align = cfg.MODEL.CONVNEXT, cfg.DOMAIN_ADAPT.ALIGN
         self.module = RCNN(
             num_classes=self.num_classes,
             num_cell_anchors=anchor_gen.num_cell_anchors,
@@ -150,6 +231,13 @@ class RCNNDetector:
             freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
             grid=(self.canvas[0] // 16, self.canvas[1] // 16),
             use_act_checkpoint=cfg.VIT.USE_ACT_CHECKPOINT,
+            convnext=dict(depths=tuple(cn.DEPTHS), dims=tuple(cn.DIMS),
+                          drop_path_rate=cn.DROP_PATH_RATE,
+                          layer_scale_init=cn.LAYER_SCALE_INIT_VALUE),
+            img_da_hidden_dims=(tuple(align.IMG_DA_HIDDEN_DIMS)
+                                if align.IMG_DA_ENABLED else None),
+            ins_da_hidden_dims=(tuple(align.INS_DA_HIDDEN_DIMS)
+                                if align.INS_DA_ENABLED else None),
         ).eval()
         self.init_variables(seed)
 
@@ -197,10 +285,11 @@ class RCNNDetector:
     # ``module``: the RCNN to run, the detector's own by default
     def backbone(self, images, module=None, drop=None):
         """Normalized NHWC images -> [p2, ..., p6], each NHWC. ``drop``: the
-        ViT's drop-path keep masks [2, depth, B] (training only)."""
+        trunk's drop-path keep masks (training only): [2, depth, B] for a
+        ViT, [sum(depths), B] for a ConvNeXt."""
         net = (module or self.module).backbone
         x = images.permute(0, 3, 1, 2)
-        feats = net(x) if drop is None else net(x, drop)
+        feats = net(x, drop)
         return [f.permute(0, 2, 3, 1) for f in feats]
 
     def rpn_head(self, features, module=None):
@@ -240,11 +329,14 @@ class RCNNDetector:
                 torch.cat([d.to(torch.float32) for d in deltas], 1))
 
     # ---------------------------------------------------------- train pass
-    def forward_train(self, module, images, image_sizes, gt, draws):
+    def forward_train(self, module, images, image_sizes, gt, draws,
+                      do_align=False, domain_label=1.0):
         """Full training forward of ``module`` on images [B, H, W, 3] with
         ground truth ``gt`` (``Instances`` padded to MAX_GT). ``draws``:
-        ``{"rpn": ..., "roi": ...}`` (and ``"drop"`` for a ViT backbone)
-        from ``engine.train_step.draw_step``.
+        ``{"rpn": ..., "roi": ...}`` (and ``"drop"`` for a ViT or ConvNeXt
+        backbone) from ``engine.train_step.draw_step``. ``do_align`` adds
+        the discriminators' losses against ``domain_label`` (1 for the
+        source domain).
         Returns (losses, aux); aux carries the RPN head outputs
         (concatenated over levels, float32), the sampled ROI set and the box
         predictor's outputs on it, for the distill losses."""
@@ -264,11 +356,14 @@ class RCNNDetector:
         sampled = sample_proposals(pboxes, pvalid, gt.boxes, gt.classes,
                                    gt.valid, draws["roi"],
                                    **self.roi_sample_params)
-        cls_logits, box_deltas, _ = self.box_head(
+        cls_logits, box_deltas, box_feats = self.box_head(
             feats, sampled["boxes"], sampled["valid"], module)
         losses.update(fast_rcnn_losses(
             cls_logits, box_deltas, sampled, self.num_classes,
             self.box_reg_weights, self.cfg.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA))
+        if do_align:
+            losses.update(self._align_losses(module, feats, box_feats,
+                                             domain_label))
         aux = {
             "rpn_logits": logits_cat,
             "rpn_deltas": deltas_cat,
@@ -277,6 +372,56 @@ class RCNNDetector:
             "roih_deltas": box_deltas.to(torch.float32),
         }
         return losses, aux
+
+    def _align_losses(self, module, feats, box_feats, domain_label):
+        """The discriminators' float32 BCE against ``domain_label`` behind
+        the gradient reversal, times their weights: the image level on the
+        pyramid level IMG_DA_LAYER, the instance level on the box head's
+        features [B, S, D], its mean over all B x S sampled slots (the
+        invalid ones included, as the JAX package takes it)."""
+        a = self.cfg.DOMAIN_ADAPT.ALIGN
+        module = module or self.module
+        out = {}
+        if a.IMG_DA_ENABLED:
+            f = grad_reverse(feats[ALIGN_LEVELS[a.IMG_DA_LAYER]])
+            preds = module.img_align(f).to(torch.float32)
+            out["loss_da_img"] = a.IMG_DA_WEIGHT * bce_with_logits(
+                preds, torch.full_like(preds, domain_label)).mean()
+        if a.INS_DA_ENABLED:
+            b, s = box_feats.shape[:2]
+            preds = module.ins_align(grad_reverse(box_feats).reshape(
+                b * s, -1)).reshape(b, s).to(torch.float32)
+            out["loss_da_ins"] = a.INS_DA_WEIGHT * bce_with_logits(
+                preds, torch.full_like(preds, domain_label)).mean()
+        return out
+
+    def forward_domain_align(self, module, images, image_sizes, draws,
+                             domain_label=0.0):
+        """The target_weak stream (reference ``aldi/trainer.py:108-109``):
+        only the alignment losses of ``module`` on images [B, H, W, 3]. The
+        backbone runs in training mode (``draws["drop"]`` for a ViT or
+        ConvNeXt trunk); with instance alignment, the RPN's proposals at
+        the train top-k, without gradient, are sampled (``draws["roi"]``)
+        against an empty gt set (one invalid slot, as the reference's
+        unlabeled mapper strips the annotations) and go through the box
+        head."""
+        feats = self.backbone(self.preprocess(images), module,
+                              draws.get("drop"))
+        box_feats = None
+        if self.cfg.DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED:
+            with torch.no_grad():
+                logits, deltas = self.rpn_head(feats, module)
+                pboxes, _, pvalid = self.proposals(logits, deltas,
+                                                   image_sizes, train=True)
+            b, dev = images.shape[0], images.device
+            sampled = sample_proposals(
+                pboxes, pvalid, torch.zeros((b, 1, 4), device=dev),
+                torch.zeros((b, 1), dtype=torch.int32, device=dev),
+                torch.zeros((b, 1), dtype=torch.bool, device=dev),
+                draws["roi"], **self.roi_sample_params)
+            _, _, box_feats = self.box_head(feats, sampled["boxes"],
+                                            sampled["valid"], module)
+        return self._align_losses(module, feats, box_feats, domain_label)
 
     # -------------------------------------------------------- teacher pass
     @torch.no_grad()

@@ -31,7 +31,6 @@ What is kept of the JAX package's arithmetic:
   recomputed forward takes the same masks, and launches K3a again.
 """
 
-import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -41,8 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attn import flash_attention_relpos
-from .layers import (ChannelLayerNorm, Conv2d, ConvNorm, LayerNorm, Linear,
-                     layer_norm)
+from .layers import (ChannelLayerNorm, DenseConv2d, DenseConvNorm,
+                     DenseLinear, LayerNorm, lecun_normal, layer_norm)
 
 VIT_CONFIGS = {
     "b": dict(embed_dim=768, depth=12, num_heads=12, drop_path_rate=0.1,
@@ -130,38 +129,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def init_weights(self, gen):
         # flax lecun_normal over the kernel's fan in (kH * kW * in)
         fan_in = self.weight.shape[0] * 4
-        _lecun_normal(self.weight, fan_in, gen)
+        lecun_normal(self.weight, fan_in, gen)
         nn.init.zeros_(self.bias)
-
-
-def _lecun_normal(weight, fan_in, gen):
-    """flax ``lecun_normal``: truncated normal (+-2 std) with the variance
-    1/fan_in after the truncation."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
-                              generator=gen)
-
-
-class _DenseInit:
-    """flax ``nn.Dense``/``nn.Conv`` default initializers."""
-
-    def init_weights(self, gen):
-        _lecun_normal(self.weight, self.weight[0].numel(), gen)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
-
-
-class DenseLinear(_DenseInit, Linear):
-    pass
-
-
-class DenseConv2d(_DenseInit, Conv2d):
-    pass
-
-
-class DenseConvNorm(_DenseInit, ConvNorm):
-    pass
 
 
 # ------------------------------------------------------------ attention
@@ -321,6 +290,13 @@ class ViT(nn.Module):
             nn.init.trunc_normal_(self.pos_embed, 0.0, 0.02, -0.04, 0.04,
                                   generator=gen)
 
+    def keep_rates(self):
+        """The keep probability of each block's drop path, per branch
+        [2 (attention, MLP), depth]: the leading shape of the keep masks
+        ``forward`` takes."""
+        return torch.tensor([1.0 - blk.drop_path
+                             for blk in self.blocks]).expand(2, -1)
+
     def forward(self, x, drop=None):
         """``drop``: keep masks [2, depth, B] for drop path, or None."""
         x = self.patch_embed(x)
@@ -376,6 +352,9 @@ class ViTDetBackbone(SimpleFeaturePyramid):
         super().__init__(cfg["embed_dim"], out_channels, compute_dtype)
         self.net = ViT(grid, use_act_checkpoint=use_act_checkpoint,
                        compute_dtype=compute_dtype, **cfg)
+
+    def keep_rates(self):
+        return self.net.keep_rates()
 
     def forward(self, x, drop=None):
         """``drop``: the ViT's drop-path keep masks, or None."""

@@ -27,19 +27,24 @@ failure exits non-zero:
    with their achieved rate, their share of the bound and PyTorch's
    ``scaled_dot_product_attention`` timed beside them.
 3. Serving phase, for the flagship detector (Faster R-CNN R50-FPN,
-   ``configs/cityscapes/ALDI-Best-Cityscapes.yaml``) and for ViTDet-B
-   (``configs/cityscapes/ALDI-Best-ViT-Cityscapes.yaml``), both with 8
+   ``configs/cityscapes/ALDI-Best-Cityscapes.yaml``), for ViTDet-B
+   (``configs/cityscapes/ALDI-Best-ViT-Cityscapes.yaml``) and for
+   ConvNeXt-L (``configs/cityscapes/ALDI-Best-ConvNeXt-Cityscapes.yaml``:
+   depths 3/3/27/3, widths 192-1536, anchors 64-1024 px), all with 8
    classes, canvas 1024x2048, bfloat16 and seeded random weights: one
    warm-up request and then 3 timed requests of 8 synthetic images each,
    through ``build_detector`` and ``make_serving_fn``. The launch counts
    are set to 0 just before the timed requests and read just after. The
    outputs are checked, one request is timed stage by stage, and one is
-   traced with torch.profiler for the device's busy share. K2's forward is
-   held against its plain version on a flagship request's real proposals.
-   Then a tiny float32 detector of each family on the card is held against
-   the same detector on the CPU (the tiny ViT has 64-wide heads, so the
-   attention kernel runs).
-4. Artifact phase, for each of the same two detectors (full width, 8
+   traced with torch.profiler for the device's busy share and its
+   layout-conversion kernels (with the operators that launched them); for
+   ConvNeXt-L the request by stage times each trunk stage, and the trunk's
+   residual stream is measured at the end of each stage. K2's forward is
+   held against its plain version on a flagship and a ConvNeXt-L
+   request's real proposals. Then a tiny float32 detector of each family
+   on the card is held against the same detector on the CPU (the tiny ViT
+   has 64-wide heads, so the attention kernel runs).
+4. Artifact phase, for R50-FPN and ViTDet-B (full width, 8
    classes, 1024x2048, bfloat16, ``seeded_weights``): the serving artifact
    exported for ``cuda`` through ``export_inference`` (the graph must call
    K2's forward op once, and for ViTDet-B K3a's op 4 times), saved with
@@ -53,18 +58,24 @@ failure exits non-zero:
    load seconds. Then the tiny float32 R50-FPN exported for ``cpu`` and
    ``cuda``: the ``cuda`` program bitwise equal to eager on the card, the
    ``cpu`` program within ``tiny_reference_check``'s tolerances of it.
-5. Training phase, for each of the two configs' ALDI++ DAOD steps
+5. Training phase, for the ALDI++ DAOD steps of the three configs and of
+   the flagship with adversarial alignment (``DOMAIN_ADAPT.ALIGN``'s
+   image- and instance-level discriminators on, the target_weak stream)
    (bfloat16, one backward per stream, soft distillation, erasing on the
    labeled stream, MIC on the unlabeled one; SGD for R50-FPN, AdamW with
-   layer decay, drop path and activation checkpointing for ViTDet-B)
+   layer decay, drop path and activation checkpointing for ViTDet-B, AdamW
+   and drop path 0.2 for ConvNeXt-L, whose parameters all train)
    through ``create_train_state``, ``draw_step`` and ``make_train_step``,
    with SOLVER.IMS_PER_BATCH cut from 48 to 8 (4 labeled + 4 unlabeled
    images of 1024x2048 per step), seeded weights for student and teacher,
    synthetic images and 5-30 gt boxes per labeled image: one warm-up step
    and 3 timed steps, launch counts set to 0 just before the timed steps
-   and read just after. Checks: finite losses, trainable parameters moved,
-   frozen ones (stem and res2) did not, the teacher differs from the
-   student after step 2, every kernel of the path launched, and no call
+   and read just after. Checks: finite losses (with alignment, the
+   ``loss_da_*`` of the source_strong and target_weak streams present),
+   trainable parameters moved, frozen ones (stem and res2) did not, the
+   teacher differs from the student after step 2, every kernel of the
+   path launched as often per step as the streams need (K1a/K1b 3, K2
+   forward 4 and backward 2; with alignment 5 and 3), and no call
    of the box head in the warm-up step had to copy a pyramid level that
    was not contiguous (NHWC) before K2. Then one step by stage, one traced
    step (with its layout-conversion kernels counted), and K2's forward and
@@ -99,8 +110,8 @@ failure exits non-zero:
    and K1a/K1b held against their plain versions and timed at each of
    the first run's first step's own launches (24 + 24 images: their real
    boxes, levels, anchors and gt), as in the training phase.
-7. Print the card line, a ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+7. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
+   line and, last, ``{"ok": true, "device": {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
 from the host clock around work that ends in ``torch.cuda.synchronize()``.
@@ -119,6 +130,12 @@ FLAGSHIP = os.path.join(ROOT, "configs", "cityscapes",
                         "ALDI-Best-Cityscapes.yaml")
 VIT_ALDI = os.path.join(ROOT, "configs", "cityscapes",
                         "ALDI-Best-ViT-Cityscapes.yaml")
+CONVNEXT_ALDI = os.path.join(ROOT, "configs", "cityscapes",
+                             "ALDI-Best-ConvNeXt-Cityscapes.yaml")
+# the aligned flagship: both discriminators on, the rest of
+# DOMAIN_ADAPT.ALIGN at its defaults
+ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
+         "DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED": True}
 VIT_GRID = (64, 128)  # ViTDet-B's stride-16 grid of the 1024x2048 canvas
 VIT_HEADS = 12  # one image's heads: G = 12
 BATCH = 8  # the evaluator's default batch size
@@ -807,19 +824,41 @@ class tiny_vit:
         vit.VIT_CONFIGS["b"] = self.saved
 
 
-def tiny_config(config=None):
-    """``config`` (or the defaults) cut to the tiny float32 detector: depth
-    26 or the tiny ViT, canvas 128, 3 classes, RPN top-k 64/32, 10
-    detections per image."""
+def config_of(config=None, overrides=None):
+    """The port's cfg from ``config`` (a YAML, or the defaults) with
+    ``overrides`` ({"A.B": value}) set."""
     from aldi_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     if config is not None:
         cfg.merge_from_file(config)
-    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 3
+    for key, value in (overrides or {}).items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for name in parents:
+            node = node[name]
+        node[leaf] = value
+    return cfg
+
+
+def tiny_trunk(cfg):
+    """The backbone cut to its tiny float32 form: ResNet depth 26, or a
+    ConvNeXt of depths (1, 1, 2, 1) and dims (16, 32, 64, 128) (the ViT is
+    cut by ``tiny_vit``)."""
     cfg.MODEL.RESNETS.DEPTH = 26
-    cfg.TPU.CANVAS = (128, 128)
+    cfg.MODEL.CONVNEXT.DEPTHS = [1, 1, 2, 1]
+    cfg.MODEL.CONVNEXT.DIMS = [16, 32, 64, 128]
     cfg.TPU.COMPUTE_DTYPE = "float32"  # the ViT config trains in bf16 (AMP)
+
+
+def tiny_config(config=None, overrides=None):
+    """``config`` (or the defaults) cut to the tiny float32 detector: depth
+    26, the tiny ConvNeXt or the tiny ViT, canvas 128, 3 classes, RPN top-k
+    64/32, 10 detections per image."""
+    cfg = config_of(config, overrides)
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 3
+    tiny_trunk(cfg)
+    cfg.TPU.CANVAS = (128, 128)
     cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 64
     cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 32
     cfg.MODEL.ROI_BOX_HEAD.NUM_FC = 2
@@ -829,8 +868,9 @@ def tiny_config(config=None):
 
 
 def tiny_reference_check(config=None):
-    """A tiny float32 detector (``config`` or the defaults, depth 26 or the
-    tiny ViT, canvas 128, 3 classes) on the card against the same detector
+    """A tiny float32 detector (``config`` or the defaults, depth 26, the
+    tiny ConvNeXt or the tiny ViT, canvas 128, 3 classes) on the card
+    against the same detector
     on the CPU, both with ``seeded_weights``, TF32 off: detections agree
     where valid (boxes 1e-3 px, scores 1e-4)."""
     import numpy as np
@@ -893,20 +933,21 @@ def params_of(module):
     return {k: v.detach().clone() for k, v in module.named_parameters()}
 
 
-def training_phase(card, kernels, config=FLAGSHIP):
-    """The DAOD step of ``config`` at full width through its entry points
-    (see the module docstring). Returns the launch counts of the timed
-    steps, K2's and K1's numbers at the step's own launches and those
-    launches (``KernelLaunches``)."""
+def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
+                   per_step=None):
+    """The DAOD step of ``config`` (with ``overrides``) at full width
+    through its entry points (see the module docstring). ``per_step``:
+    {kernel name: launches per step} that the timed steps must show.
+    Returns the launch counts of the timed steps, K2's and K1's numbers at
+    the step's own launches and those launches (``KernelLaunches``)."""
     import torch
 
-    from aldi_tpu_torch.config import get_cfg
     from aldi_tpu_torch.engine.train_step import (create_train_state,
-                                                  draw_step, make_train_step)
+                                                  draw_step, make_train_step,
+                                                  stream_flags)
     from aldi_tpu_torch.models import build_detector
 
-    cfg = get_cfg()
-    cfg.merge_from_file(config)
+    cfg = config_of(config, overrides)
     name = model_name(cfg)
     print(f"[train] {name} reduction: SOLVER.IMS_PER_BATCH "
           f"{cfg.SOLVER.IMS_PER_BATCH}"
@@ -982,6 +1023,23 @@ def training_phase(card, kernels, config=FLAGSHIP):
     for kname, n in launches.items():
         if n == 0:
             fail(f"the {name} training path never launched {kname}")
+    for kname, n in (per_step or {}).items():
+        if launches[kname] != n * TIMED_STEPS:
+            fail(f"{name}: {launches[kname]} launches of {kname} in "
+                 f"{TIMED_STEPS} steps, {n} per step expected")
+    if stream_flags(cfg).align:
+        a = cfg.DOMAIN_ADAPT.ALIGN
+        kinds = [k for k, on in (("img", a.IMG_DA_ENABLED),
+                                 ("ins", a.INS_DA_ENABLED)) if on]
+        want = {f"loss_da_{k}_{s}" for k in kinds
+                for s in ("source_strong", "target_weak")}
+        if not want <= set(metrics[-1]):
+            fail(f"{name}: alignment losses missing: "
+                 f"{sorted(want - set(metrics[-1]))}")
+        print(f"[train] {name}, alignment losses of the timed steps: "
+              + "; ".join(f"{k} " + ", ".join(f"{mm[k]:.5f}"
+                                              for mm in metrics)
+                          for k in sorted(want)), flush=True)
     moved = frozen_moved = 0
     for pname, p in state.student.named_parameters():
         changed = not torch.equal(p.detach(), start[pname])
@@ -1025,19 +1083,14 @@ def training_phase(card, kernels, config=FLAGSHIP):
         print(f"[train] {name} device busy share: not measured (the profiler "
               "saw no device events)")
     else:
-        busy, top, per_kernel = traced
+        busy, top, per_kernel, converters = traced
         print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
               f"{med:.2f} ms median step, idle share "
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
               + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
               flush=True)
-        print(f"[train] {name}, traced step: layout conversions "
-              + "; ".join(
-                  f"{kind} {sum(n for k, (_, n) in per_kernel.items() if kind in k)}"
-                  f" launches, "
-                  f"{sum(ms for k, (ms, _) in per_kernel.items() if kind in k):.2f}"
-                  " ms" for kind in ("nchwToNhwcKernel", "nhwcToNchwKernel")),
-              flush=True)
+        print(f"[train] {name}, traced step: "
+              + layout_conversions(per_kernel, converters), flush=True)
     del state, batches, draws
     torch.cuda.empty_cache()
     step_kernels = time_step_launches(name, recorded.launches)
@@ -1114,9 +1167,10 @@ def check_card_teacher(card, got, want, module, images, sizes, draws):
         fail("tiny teacher pass: card and CPU disagree")
 
 
-def tiny_train_reference_check(config=FLAGSHIP):
-    """One DAOD step of a tiny float32 detector (depth 26 or the tiny ViT,
-    canvas 128, 3 classes, the recipe of ``config``) on the card against
+def tiny_train_reference_check(config=FLAGSHIP, overrides=None):
+    """One DAOD step of a tiny float32 detector (depth 26, the tiny ConvNeXt
+    or the tiny ViT, canvas 128, 3 classes, the recipe of ``config`` with
+    ``overrides``) on the card against
     the same step on the CPU: the same seeded weights, batch and draws (made on the CPU and
     moved to the card), TF32 off for matrix products and cuDNN. The card's
     teacher pass is held against the CPU's (``check_card_teacher``), and
@@ -1133,18 +1187,15 @@ def tiny_train_reference_check(config=FLAGSHIP):
     import numpy as np
     import torch
 
-    from aldi_tpu_torch.config import get_cfg
     from aldi_tpu_torch.engine.train_step import (create_train_state,
                                                   draw_step, make_train_step)
     from aldi_tpu_torch.models import build_detector
 
-    cfg = get_cfg()
-    cfg.merge_from_file(config)
+    cfg = config_of(config, overrides)
     cfg.MODEL.ROI_HEADS.NUM_CLASSES = 3
-    cfg.MODEL.RESNETS.DEPTH = 26
+    tiny_trunk(cfg)
     cfg.TPU.CANVAS = (128, 128)
     cfg.TPU.MAX_GT = 8
-    cfg.TPU.COMPUTE_DTYPE = "float32"
     for k, v in (("PRE_NMS_TOPK_TRAIN", 64), ("POST_NMS_TOPK_TRAIN", 32),
                  ("PRE_NMS_TOPK_TEST", 64), ("POST_NMS_TOPK_TEST", 32)):
         cfg.MODEL.RPN[k] = v
@@ -1246,12 +1297,27 @@ def staged_request(det, images, sizes):
         x = det.preprocess(images)
         mark("preprocess")
         net = det.module.backbone
+        convnext = getattr(getattr(net, "bottom_up", None), "stages", None)
         if hasattr(net, "net"):  # ViTDet: the trunk, then the pyramid
             trunk = net.net(x.permute(0, 3, 1, 2))
             mark("backbone (ViT, 4 x flash_attn_fwd)")
             feats = [f.permute(0, 2, 3, 1)
                      for f in SimpleFeaturePyramid.forward(net, trunk)]
             mark("feature pyramid (SFP)")
+        elif convnext is not None:  # ConvNeXt: a mark after each stage
+            hooks = [stage[-1].register_forward_hook(
+                lambda *_, i=i, n=len(stage): mark(
+                    f"ConvNeXt stage {i} ("
+                    + ("conv + LN" if i == 0 else
+                       f"stage {i - 1}'s output LN, LN + conv")
+                    + f", {n} blocks)"))
+                for i, stage in enumerate(convnext)]
+            try:
+                feats = det.backbone(x)
+            finally:
+                for h in hooks:
+                    h.remove()
+            mark("stage 3's output LN + FPN")
         else:
             feats = det.backbone(x)
             mark("backbone (R50 + FPN)")
@@ -1278,19 +1344,38 @@ def staged_request(det, images, sizes):
     return stages
 
 
+CONVERSIONS = ("nchwToNhwcKernel", "nhwcToNchwKernel")
+
+
+def layout_conversions(per_kernel, converters):
+    """A log line's text: the layout-conversion kernels of a trace, by kind,
+    and the operators that launched them (``device_busy``)."""
+    text = "layout conversions " + "; ".join(
+        f"{kind} {sum(n for k, (_, n) in per_kernel.items() if kind in k)}"
+        f" launches, "
+        f"{sum(ms for k, (ms, _) in per_kernel.items() if kind in k):.2f} ms"
+        for kind in CONVERSIONS)
+    if converters:
+        text += "; launched by " + "; ".join(
+            f"{op} x{n}" for op, n in sorted(converters.items(),
+                                            key=lambda kv: -kv[1]))
+    return text
+
+
 def device_busy(fn):
     """Trace one call of ``fn`` (a request or a step) with torch.profiler.
     Returns the device's busy time in ms (the union of its kernel and copy
-    intervals), the six kernels with the most time (name, ms, calls) and
-    {name: (ms, calls)} of every kernel, or None when the trace holds no
-    device events."""
+    intervals), the six kernels with the most time (name, ms, calls),
+    {name: (ms, calls)} of every kernel and {operator and its first input
+    shapes: count} of the layout-conversion kernels' launching operators;
+    or None when the trace holds no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -1308,7 +1393,14 @@ def device_busy(fn):
             ms, n = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
-    return busy_us / 1e3, [(k, ms, n) for k, (ms, n) in top], per_kernel
+    converters = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or []:
+            if any(kind in k.name for kind in CONVERSIONS):
+                op = f"{e.name} {e.input_shapes[:2]}"
+                converters[op] = converters.get(op, 0) + 1
+    return (busy_us / 1e3, [(k, ms, n) for k, (ms, n) in top], per_kernel,
+            converters)
 
 
 def serving_phase(card, config, kernels, numbers=None):
@@ -1369,6 +1461,10 @@ def serving_phase(card, config, kernels, numbers=None):
           f"device memory {peak:.2f} GiB; card {card}", flush=True)
 
     images, sizes = requests[-1]
+    stages = getattr(getattr(det.module.backbone, "bottom_up", None),
+                     "stages", None)
+    if stages is not None:
+        print(f"[serving] {name}: " + trunk_scale(det, images), flush=True)
     if numbers is not None:  # K2 on the last request's real proposals
         feats, pboxes, levels, copied = request_proposals(det, images, sizes)
         print(f"[serving] {name}: {copied} of {len(feats)} pyramid levels "
@@ -1386,15 +1482,40 @@ def serving_phase(card, config, kernels, numbers=None):
         print(f"[serving] {name} device busy share: not measured (the "
               "profiler saw no device events)")
     else:
-        busy, top, _ = traced
+        busy, top, per_kernel, converters = traced
         print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
               f"of the {median:.2f} ms median request, idle share "
               f"{max(0.0, 1 - busy / median):.3f}; top kernels: "
               + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
               flush=True)
+        print(f"[serving] {name}, traced request: "
+              + layout_conversions(per_kernel, converters), flush=True)
     del det, fn, requests, out
     torch.cuda.empty_cache()
     return launches
+
+
+def trunk_scale(det, images):
+    """A log line's text: the standard deviation of a ConvNeXt trunk's
+    residual stream at the end of each stage (before the output LN) on
+    one request, and of its p2..p6 levels: O(1) shows that the seeded
+    weights keep the activations in range through every block."""
+    import torch
+
+    stages = det.module.backbone.bottom_up.stages
+    seen = []
+    hooks = [stage[-1].register_forward_hook(
+        lambda _m, _i, out: seen.append(float(out.float().std())))
+        for stage in stages]
+    try:
+        with torch.inference_mode():
+            feats = det.backbone(det.preprocess(images))
+    finally:
+        for h in hooks:
+            h.remove()
+    return ("residual stream std after stages 0-3 " + fmt(seen, 3)
+            + "; p2..p6 std " + fmt([float(f.float().std()) for f in feats],
+                                    3))
 
 
 def request_proposals(det, images, sizes):
@@ -1581,7 +1702,7 @@ def artifact_phase(card, config, kernels, per_request):
             print(f"[artifact] {name}, traced {label} request: device busy "
                   "not measured (the profiler saw no device events)")
             continue
-        busy, _, per_kernel = traced
+        busy, _, per_kernel, _ = traced
         print(f"[artifact] {name}, traced {label} request: device busy "
               f"{busy:.2f} ms of the {ms:.2f} ms median, idle share "
               f"{max(0.0, 1 - busy / ms):.3f}, "
@@ -1715,11 +1836,11 @@ class KernelLaunches:
             self.site, self.pseudo = None, out[1]
             return out
 
-        def train_call(module, images, sizes, gt, draws):
+        def train_call(module, images, sizes, gt, draws, **kwargs):
             self.site = ("distill stream RPN loss (pseudo-labels)"
                          if gt is self.pseudo else
                          "strong stream RPN loss (labeled gt)")
-            out = forward_train(module, images, sizes, gt, draws)
+            out = forward_train(module, images, sizes, gt, draws, **kwargs)
             self.site = None
             return out
 
@@ -2316,21 +2437,34 @@ def fmt(xs, digits=2):
 def median(xs):
     return sorted(xs)[len(xs) // 2]
 
+CONVNEXT_SIZES = {(96, 9): "T", (96, 27): "S", (128, 27): "B",
+                  (192, 27): "L", (256, 27): "XL"}
+
+
 def model_name(cfg):
-    """"R50-FPN" or "ViTDet-B" for the log lines."""
+    """"R50-FPN", "ConvNeXt-L" or "ViTDet-B" for the log lines, with
+    " align" when a discriminator is on."""
     name = cfg.MODEL.BACKBONE.NAME
     if name.startswith("build_vitdet"):
-        return f"ViTDet-{name.split('_')[2].upper()}"
-    return f"R{cfg.MODEL.RESNETS.DEPTH}-FPN"
+        out = f"ViTDet-{name.split('_')[2].upper()}"
+    elif name == "build_convnext_fpn_backbone":
+        c = cfg.MODEL.CONVNEXT
+        out = "ConvNeXt-" + CONVNEXT_SIZES.get(
+            (c.DIMS[0], c.DEPTHS[2]), "tiny")
+    else:
+        out = f"R{cfg.MODEL.RESNETS.DEPTH}-FPN"
+    a = cfg.DOMAIN_ADAPT.ALIGN
+    return out + (" align" if a.IMG_DA_ENABLED or a.INS_DA_ENABLED else "")
 
 
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
-    if not os.path.isdir(os.path.join(ROOT, "aldi_tpu_torch")) or \
-            not os.path.exists(FLAGSHIP) or not os.path.exists(VIT_ALDI):
+    if not os.path.isdir(os.path.join(ROOT, "aldi_tpu_torch")) or not all(
+            os.path.exists(c) for c in (FLAGSHIP, VIT_ALDI, CONVNEXT_ALDI)):
         fail("run from a checkout of the repository: aldi_tpu_torch/ or a "
              "config is missing")
     sys.path.insert(0, ROOT)
@@ -2401,14 +2535,18 @@ def main():
                library=True)
     torch.cuda.empty_cache()
 
-    # -- 3. serving phase: each detector through its entry points
+    # -- 3. serving phase: each detector through its entry points (K2 on
+    # ConvNeXt-L's real proposals too, its numbers kept out of the line)
     serving_launches = {
         "R50-FPN": serving_phase(card, FLAGSHIP, [roi_align_fwd], numbers),
         "ViTDet-B": serving_phase(card, VIT_ALDI,
-                                  [roi_align_fwd, flash_attn_fwd])}
+                                  [roi_align_fwd, flash_attn_fwd]),
+        "ConvNeXt-L": serving_phase(card, CONVNEXT_ALDI, [roi_align_fwd],
+                                    {})}
     tiny_reference_check()
     with tiny_vit():
         tiny_reference_check(VIT_ALDI)
+    tiny_reference_check(CONVNEXT_ALDI)
 
     # -- 4. artifact phase: each detector exported, saved, loaded, served
     artifact_launches = {
@@ -2419,15 +2557,33 @@ def main():
                                    {"roi_align_fwd": 1, "flash_attn_fwd": 4})}
     tiny_artifact_check()
 
-    # -- 5. training phase: each DAOD step through its entry points
-    launches, step_kernels, _ = training_phase(card, flagship_kernels)
+    # -- 5. training phase: each DAOD step through its entry points. Per
+    # step: K1a/K1b 3 (the teacher's distill anchors, the strong and the
+    # distill streams' RPN losses); K2 forward 4 (the teacher's proposals,
+    # the strong and distill streams' ROIs, the teacher's head on the
+    # distill ROIs) and backward 2; with alignment, the target_weak
+    # stream's box head adds one of each
+    per_step = {"match_iou": 3, "low_quality_mask": 3, "roi_align_fwd": 4,
+                "roi_align_bwd": 2}
+    launches, step_kernels, _ = training_phase(card, flagship_kernels,
+                                               per_step=per_step)
     torch.cuda.empty_cache()
     tiny_train_reference_check()
-    vit_launches, vit_step_kernels, _ = training_phase(card, vit_kernels,
-                                                       VIT_ALDI)
+    vit_launches, vit_step_kernels, _ = training_phase(
+        card, vit_kernels, VIT_ALDI, per_step={
+            **per_step, "flash_attn_fwd": 20, "flash_attn_bwd": 8})
     torch.cuda.empty_cache()
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
+    convnext_launches, convnext_step_kernels, _ = training_phase(
+        card, flagship_kernels, CONVNEXT_ALDI, per_step=per_step)
+    torch.cuda.empty_cache()
+    tiny_train_reference_check(CONVNEXT_ALDI)
+    align_launches, align_step_kernels, _ = training_phase(
+        card, flagship_kernels, FLAGSHIP, ALIGN, per_step={
+            **per_step, "roi_align_fwd": 5, "roi_align_bwd": 3})
+    torch.cuda.empty_cache()
+    tiny_train_reference_check(FLAGSHIP, ALIGN)
 
     # -- 6. trainer phase: the training CLI at the published batch
     trainer_launches, eval_launches, recorded = trainer_phase(
@@ -2448,11 +2604,15 @@ def main():
     by_path = {"R50-FPN training": {k.name: launches[k.name]
                                     for k in flagship_kernels},
                "ViTDet-B training": vit_launches,
+               "ConvNeXt-L training": convnext_launches,
+               "R50-FPN align training": align_launches,
                "R50-FPN trainer": trainer_launches,
                "R50-FPN eval": {"roi_align_fwd":
                                 eval_launches["roi_align_fwd"]},
         **{f"{m} serving": v for m, v in serving_launches.items()},
         **{f"{m} artifact": v for m, v in artifact_launches.items()}}
+    print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} "
+          "s", flush=True)
     print(f"[card] {card}")
     entries = []
     for k in vit_kernels:
@@ -2476,6 +2636,10 @@ def main():
                     for r in rs if r["kind"] == kind]
                 for path, rs in (("R50-FPN training", step_kernels),
                                  ("ViTDet-B training", vit_step_kernels),
+                                 ("ConvNeXt-L training",
+                                  convnext_step_kernels),
+                                 ("R50-FPN align training",
+                                  align_step_kernels),
                                  ("R50-FPN trainer", trainer_kernels))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}))

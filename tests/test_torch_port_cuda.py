@@ -36,9 +36,10 @@ from aldi_tpu_torch.ops.roi_align import (box_levels, roi_align_batched,
                                           roi_align_plain,
                                           roi_align_plain_backward)
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
-from chip_smoke import (VIT_ALDI, attn_inputs, check_attn,
-                        tiny_artifact_check, tiny_reference_check,
-                        tiny_train_reference_check, tiny_vit)
+from chip_smoke import (ALIGN, CONVNEXT_ALDI, FLAGSHIP, VIT_ALDI,
+                        attn_inputs, check_attn, tiny_artifact_check,
+                        tiny_reference_check, tiny_train_reference_check,
+                        tiny_vit)
 from torch_port_match_cases import CASES as MATCH_CASES
 from torch_port_match_cases import match_case
 
@@ -485,6 +486,22 @@ def test_tiny_vitdet_train_step_on_card_matches_cpu(card):
         tiny_train_reference_check(VIT_ALDI)
 
 
+def test_tiny_convnext_on_card_matches_cpu(card):
+    """chip_smoke's reference check for the tiny ConvNeXt; fails
+    (SystemExit) on disagreement."""
+    tiny_reference_check(CONVNEXT_ALDI)
+
+
+def test_tiny_convnext_train_step_on_card_matches_cpu(card):
+    tiny_train_reference_check(CONVNEXT_ALDI)
+
+
+def test_tiny_aligned_train_step_on_card_matches_cpu(card):
+    """The tiny flagship step with both discriminators and the target_weak
+    stream, card against CPU."""
+    tiny_train_reference_check(FLAGSHIP, ALIGN)
+
+
 class _HostBatches:
     """A seekable host loader: batch i is a function of i (uint8 images,
     int32 sizes, nested as the trainer's batches are)."""
@@ -554,7 +571,7 @@ def test_tiny_trainer_on_card_checkpoints_and_resumes(card, tmp_path, accum):
     from aldi_tpu_torch.data.catalog import (DatasetCatalog,
                                              register_coco_instances)
     from aldi_tpu_torch.engine.trainer import ALDITrainer
-    from chip_smoke import FLAGSHIP, write_synthetic_coco
+    from chip_smoke import write_synthetic_coco
 
     names = {}
     for split, n, seed in (("train", 6, 1), ("unlabeled", 6, 2),

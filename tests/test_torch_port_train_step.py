@@ -413,8 +413,6 @@ def test_train_state_round_trips_jax_variables(dets):
 
 # ------------------------------------------------------------ the rules
 @pytest.mark.parametrize("key,value", [
-    ("DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED", True),
-    ("DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED", True),
     ("TPU.RPN_LOSS_IMPL", "dense"),
 ])
 def test_unported_training_configs_raise(key, value):

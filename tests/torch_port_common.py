@@ -188,3 +188,53 @@ def drop_weight_files(root):
     for pattern in ("*.pth", "*.pkl"):
         for path in pathlib.Path(root).rglob(pattern):
             path.unlink()
+
+
+@contextlib.contextmanager
+def teacher_ctx_from_jax(det, jdet, variables, images, sizes, key):
+    """For the duration, ``det.forward_teacher_ctx`` runs the port's teacher
+    pass, checks its pseudo-labels against the JAX package's on the same
+    weights (``valid`` and ``classes`` equal, boxes within 1e-3 px) and then
+    returns the JAX package's context, pseudo-labels and metrics (``key``:
+    the JAX step's teacher key, ``split(rng, 10)[0]``). The low-quality
+    anchor match tests IoU equality, so pseudo-labels one float32 ulp apart
+    can label tied anchors differently (large anchors over small boxes tie
+    often): a whole step is compared with its teacher's discontinuity
+    taken out, each side on the same pseudo-labels."""
+    import jax.numpy as jnp
+    import torch
+
+    from aldi_tpu_torch.structures import Instances
+
+    cfg = det.cfg
+    threshold = cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD
+    ctx, pseudo, metrics = jax.jit(
+        lambda v, im, sz: jdet.forward_teacher_ctx(
+            v, im, sz, key, threshold=threshold, max_gt=cfg.TPU.MAX_GT))(
+        jax.tree_util.tree_map(jnp.asarray, dict(variables)),
+        jnp.asarray(images), jnp.asarray(sizes))
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    want = ({k: [t(f) for f in v] if k == "feats" else t(v)
+             for k, v in ctx.items() if v is not None},
+            Instances(t(pseudo.boxes), t(pseudo.classes), t(pseudo.valid),
+                      t(pseudo.scores)),
+            {k: t(v) for k, v in metrics.items()})
+    own = det.forward_teacher_ctx
+
+    def from_jax(*args, **kwargs):
+        _, got, _ = own(*args, **kwargs)
+        w = want[1]
+        m = w.valid
+        assert torch.equal(got.valid, m) and torch.equal(got.classes[m],
+                                                         w.classes[m])
+        assert max_err(got.boxes[m].numpy(), w.boxes[m].numpy()) <= 1e-3
+        return want
+
+    det.forward_teacher_ctx = from_jax
+    try:
+        yield want
+    finally:
+        del det.forward_teacher_ctx

@@ -9,10 +9,12 @@ draws, as torch tensors, in the layout the port's function takes:
 ``aldi_tpu/models/roi_heads.py:98-123`` (``sample_proposals``),
 ``aldi_tpu/models/rcnn.py:410`` (``forward_train``),
 ``aldi_tpu/data/strong_aug.py:43-157`` (``strong_augment``),
-``aldi_tpu/engine/train_step.py:137-194,331`` (the step's keys) and
-``aldi_tpu/models/vit.py:197-203`` (drop path). It uses JAX only and
-changes nothing in ``aldi_tpu``: the drop-path masks, which flax derives
-from the module path, are captured from a run of the JAX backbone.
+``aldi_tpu/engine/train_step.py:137-194,331`` (the step's keys),
+``aldi_tpu/models/rcnn.py:662-691`` (``forward_domain_align``),
+``aldi_tpu/models/vit.py:197-203`` and ``aldi_tpu/models/convnext.py:45-50``
+(drop path). It uses JAX only and changes nothing in ``aldi_tpu``: the
+drop-path masks, which flax derives from the module path, are captured
+from a run of the JAX backbone.
 """
 
 import jax
@@ -74,19 +76,13 @@ def sample_proposals_draws(key, batch, n):
     return _stack(out)
 
 
-def vit_drop_masks(jdet, variables, k_drop, batch):
-    """The keep masks [2, depth, batch] (bool) that the JAX detector's ViT
-    draws in ``backbone(variables, x, train=True, rng=k_drop)``: its
-    backbone runs un-jitted and without remat (flax derives the same keys
-    with it) on zero images, with ``jax.random.bernoulli`` recording each
-    mask in call order (per block with a non-zero rate: attention, then
-    MLP). Blocks of rate 0 keep everything."""
-    from aldi_tpu.models import vit
+def _recorded_bernoullis(jdet, variables, k_drop, batch, module):
+    """Each mask that ``jax.random.bernoulli`` draws while ``module`` (the
+    JAX detector's module, or a clone) runs its backbone un-jitted on zero
+    images in training mode with the dropout key ``k_drop``, flattened, in
+    call order."""
     from aldi_tpu.models.rcnn import RCNN
 
-    module = jdet.module.clone(use_act_checkpoint=False)
-    cfg = vit.VIT_CONFIGS[jdet.cfg.MODEL.BACKBONE.NAME.split("_")[2]]
-    depth, rate = cfg["depth"], cfg["drop_path_rate"]
     recorded = []
     real = jax.random.bernoulli
 
@@ -102,6 +98,40 @@ def vit_drop_masks(jdet, variables, k_drop, batch):
                      rngs={"dropout": k_drop})
     finally:
         jax.random.bernoulli = real
+    return recorded
+
+
+def convnext_drop_masks(jdet, variables, k_drop, batch):
+    """The keep masks [sum(depths), batch] (bool) that the JAX detector's
+    ConvNeXt draws in ``backbone(variables, x, train=True, rng=k_drop)``:
+    one per block with a non-zero rate, in block order; blocks of rate 0
+    keep everything."""
+    c = jdet.cfg.MODEL.CONVNEXT
+    total, rate = sum(c.DEPTHS), c.DROP_PATH_RATE
+    it = iter(_recorded_bernoullis(jdet, variables, k_drop, batch,
+                                   jdet.module))
+    masks = np.ones((total, batch), bool)
+    for i in range(total):
+        if rate * i / max(total - 1, 1) > 0:
+            masks[i] = next(it)
+    assert next(it, None) is None
+    return _t(masks)
+
+
+def vit_drop_masks(jdet, variables, k_drop, batch):
+    """The keep masks [2, depth, batch] (bool) that the JAX detector's ViT
+    draws in ``backbone(variables, x, train=True, rng=k_drop)``: its
+    backbone runs un-jitted and without remat (flax derives the same keys
+    with it) on zero images, with ``jax.random.bernoulli`` recording each
+    mask in call order (per block with a non-zero rate: attention, then
+    MLP). Blocks of rate 0 keep everything."""
+    from aldi_tpu.models import vit
+
+    cfg = vit.VIT_CONFIGS[jdet.cfg.MODEL.BACKBONE.NAME.split("_")[2]]
+    depth, rate = cfg["depth"], cfg["drop_path_rate"]
+    recorded = _recorded_bernoullis(
+        jdet, variables, k_drop, batch,
+        jdet.module.clone(use_act_checkpoint=False))
     masks = np.ones((2, depth, batch), bool)
     it = iter(recorded)
     for i in range(depth):
@@ -114,7 +144,8 @@ def vit_drop_masks(jdet, variables, k_drop, batch):
 def forward_train_draws(rng, cfg, batch, n_anchors, drop_masks=None):
     """``RCNNDetector.forward_train(..., rng)``: the RPN and ROI samplers'
     draws, and with ``drop_masks`` (``functools.partial(vit_drop_masks,
-    jdet, variables)``) the ViT's drop-path masks."""
+    jdet, variables)`` or ``convnext_drop_masks``) the trunk's drop-path
+    masks."""
     k_rpn, k_roi, k_drop = jax.random.split(rng, 3)
     rpn = cfg.MODEL.RPN
     n_cand = rpn.POST_NMS_TOPK_TRAIN + cfg.TPU.MAX_GT
@@ -122,6 +153,21 @@ def forward_train_draws(rng, cfg, batch, n_anchors, drop_masks=None):
                                       rpn.BATCH_SIZE_PER_IMAGE,
                                       rpn.POSITIVE_FRACTION),
            "roi": sample_proposals_draws(k_roi, batch, n_cand)}
+    if drop_masks is not None:
+        out["drop"] = drop_masks(k_drop, batch)
+    return out
+
+
+def domain_align_draws(rng, cfg, batch, drop_masks=None):
+    """``RCNNDetector.forward_domain_align(..., rng)``: with instance
+    alignment the ROI sampler's draws over the train proposals and one
+    empty gt slot, and with ``drop_masks`` the trunk's masks."""
+    rng, k_drop = jax.random.split(rng)
+    out = {}
+    if cfg.DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED:
+        n = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + int(
+            cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT)
+        out["roi"] = sample_proposals_draws(rng, batch, n)
     if drop_masks is not None:
         out["drop"] = drop_masks(k_drop, batch)
     return out
@@ -168,8 +214,9 @@ def strong_aug_draws(key, batch, canvas, include_erasing=True, mic=False,
 def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors,
                      drop_masks=None):
     """Every draw of ``make_train_step(...)(state, batch, rng)`` for the
-    labeled_strong + distill composition of the flagship, keyed as the
-    port's ``draw_step`` keys them (``drop_masks``: see
+    labeled_strong + distill composition of the flagship, and the
+    target_weak stream's (``"align"``) when DOMAIN_ADAPT.ALIGN is on, keyed
+    as the port's ``draw_step`` keys them (``drop_masks``: see
     ``forward_train_draws``). With ``TPU.GRAD_ACCUM = k > 1`` the student
     streams' entries are lists of k chunks' draws, from the keys
     ``split(fold_in(keys[7], i), 4)`` of chunk i
@@ -179,12 +226,17 @@ def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors,
     rpn = cfg.MODEL.RPN
     canvas = tuple(cfg.TPU.CANVAS)
     accum = max(int(cfg.TPU.GRAD_ACCUM), 1)
+    a = cfg.DOMAIN_ADAPT.ALIGN
+    align = a.IMG_DA_ENABLED or a.INS_DA_ENABLED
     if accum == 1:
         students = {
             "strong": forward_train_draws(keys[4], cfg, n_labeled, n_anchors,
                                           drop_masks),
             "distill": forward_train_draws(keys[6], cfg, n_unlabeled,
                                            n_anchors, drop_masks)}
+        if align:
+            students["align"] = domain_align_draws(keys[5], cfg, n_unlabeled,
+                                                   drop_masks)
     else:
         chunk_keys = [jax.random.split(jax.random.fold_in(keys[7], i), 4)
                       for i in range(accum)]
@@ -195,6 +247,10 @@ def train_step_draws(rng, cfg, n_labeled, n_unlabeled, n_anchors,
             "distill": [forward_train_draws(k[3], cfg, n_unlabeled // accum,
                                             n_anchors, drop_masks)
                         for k in chunk_keys]}
+        if align:
+            students["align"] = [domain_align_draws(
+                k[2], cfg, n_unlabeled // accum, drop_masks)
+                for k in chunk_keys]
     return {
         "teacher": label_anchors_draws(keys[0], n_unlabeled, n_anchors,
                                        rpn.BATCH_SIZE_PER_IMAGE,
