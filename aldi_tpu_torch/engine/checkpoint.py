@@ -3,7 +3,11 @@
 Port of ``aldi_tpu/engine/checkpoint.py:44-207``. A checkpoint is one torch
 file, ``OUTPUT_DIR/model_{iter:07d}.pth``, in the reference ALDI layout
 (``aldi/checkpoint.py:18-32``): ``model`` (the student's state dict),
-``ema`` (the teacher's, keys prefixed ``model.``), ``optimizer``,
+``ema`` (the teacher's, keys prefixed ``model.``; each state dict holds the
+module's buffers, so YOLO's BatchNorm running statistics, the student's
+and the teacher's EMA of them, are saved and resumed with the weights, as
+``aldi_tpu/engine/checkpoint.py:144-160`` saves ``model_state`` and
+``ema_model_state``), ``optimizer``,
 ``iteration``, ``trainer_state`` (the best-AP50 map) and ``__author__``,
 which marks the port's own files: their tensors are in the port's layouts
 already (detectron2's zoo files carry the key too). ``last_checkpoint``

@@ -25,7 +25,11 @@ state dict for ``models.rcnn.RCNN``, whose names follow detectron2:
   conv for i = 0, the norm after), the depthwise kernel [7, 7, 1, C] ->
   [C, 1, 7, 7];
 - the discriminators of domain alignment: ``img_align/conv{i}``,
-  ``img_align/linear``, ``ins_align/linear{i}``, ``ins_align/linear_out``.
+  ``img_align/linear``, ``ins_align/linear{i}``, ``ins_align/linear_out``;
+- YOLOv5 (``b{i}``, ``n{i}``, ``detect{i}``): the JAX path joined with
+  dots, its BatchNorm ``scale`` -> ``weight`` and the ``batch_stats``
+  collection's ``mean``/``var`` -> the ``running_mean``/``running_var``
+  buffers.
 
 The same function converts a JAX ``TrainState``'s EMA teacher, given
 ``{"params": state.ema_params, "frozen": state.frozen}`` (the teacher
@@ -39,11 +43,12 @@ detectron2 zoo ``.pkl`` already carries the port's (detectron2's) names, so
 differently: the box head's ``fc1`` input from detectron2's channel-major
 (c, h, w) flattening to (h, w, c), and a ViT ``pos_embed`` stored as tokens
 [1, p*p (+1 class token), D] to the grid [1, p, p, D]; a ConvNeXt's names
-and layouts are the reference's. The discriminators are not read from a
-reference file (``aldi_tpu/engine/checkpoint_convert.py:172-174`` skips
-them too): they keep their initial weights. Loading is non-strict, as
-detectron2's: missing, unused and shape-mismatched keys are logged and
-skipped.
+and layouts are the reference's; a YOLOv5 file carries ultralytics'
+``model.{idx}.*`` names (``yolo_reference_names``). The discriminators are
+not read from a reference file (``aldi_tpu/engine/checkpoint_convert.py:
+172-174`` skips them too): they keep their initial weights. Loading is
+non-strict, as detectron2's: missing, unused and shape-mismatched keys are
+logged and skipped.
 """
 
 import pickle
@@ -71,6 +76,8 @@ _SFP_SLOTS = {
     3: {"conv1": "1", "norm1": "1.norm", "conv2": "2", "norm2": "2.norm"},
 }
 _LEAF = {"kernel": "weight", "scale": "weight"}
+# YOLOv5's leaves, its BatchNorm statistics (``batch_stats``) included
+_YOLO_LEAF = {**_LEAF, "mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree, prefix=()):
@@ -113,8 +120,16 @@ def _convnext_name(path) -> str:
     return f"{base}.stages.{stage}.{block}.{path[2]}{sub}"
 
 
+def _is_yolo(top: str) -> bool:
+    """A YOLOv5 module name: ``b{i}``, ``n{i}`` or ``detect{i}``."""
+    return (top[0] in "bn" and top[1:].isdigit()) or (
+        top.startswith("detect") and top[len("detect"):].isdigit())
+
+
 def _port_name(path) -> str:
     top, leaf = path[0], path[-1]
+    if _is_yolo(top):  # the port keeps the JAX names: a join
+        return ".".join(path[:-1] + (_YOLO_LEAF.get(leaf, leaf),))
     if top == "backbone" and (path[1] == "pos_embed" or path[1].startswith(
             ("patch_embed", "block"))):
         return _vit_name(path)
@@ -150,9 +165,11 @@ def _port_name(path) -> str:
 
 
 def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """``{"params": tree, "frozen": tree}`` -> ``{name: float32 tensor}``."""
+    """``{"params": tree, "frozen": tree}`` (the R-CNN families) or
+    ``{"params": tree, "batch_stats": tree}`` (YOLOv5) -> ``{name: float32
+    tensor}``."""
     out = {}
-    for coll in ("params", "frozen"):
+    for coll in ("params", "frozen", "batch_stats"):
         for path, arr in _flatten(variables.get(coll, {})):
             a = np.asarray(arr, dtype=np.float32)
             if path[-1] == "kernel" and "deconv" in path[-2]:
@@ -218,6 +235,23 @@ def _reference_layout(name: str, t: torch.Tensor,
     return t
 
 
+def yolo_reference_names(name: str):
+    """A port YOLOv5 state-dict name -> the ultralytics names it may have
+    in a reference file (port of ``aldi_tpu/engine/checkpoint_convert.py:
+    178-212``): module indices of the v5 yaml layout (``b4.m0.cv1.bn.
+    weight`` -> ``4.m.0.cv1.bn.weight``, ``detect{i}`` -> ``24.m.{i}``),
+    under the three wrapper prefixes: plain ultralytics (``model.``),
+    stripped, and double-wrapped (``model.model.``)."""
+    top, *rest = name.split(".")
+    if top.startswith("detect"):
+        stem = f"24.m.{top[len('detect'):]}.{rest[-1]}"
+    else:
+        segs = [f"m.{p[1:]}" if p[0] == "m" and p[1:].isdigit() else p
+                for p in rest]
+        stem = ".".join([top[1:]] + segs)
+    return [f"model.{stem}", stem, f"model.model.{stem}"]
+
+
 def reference_state_dict_to_port(sd: dict, target: Dict[str, torch.Tensor],
                                  logger=None, convert_layouts=True
                                  ) -> Dict[str, torch.Tensor]:
@@ -233,11 +267,15 @@ def reference_state_dict_to_port(sd: dict, target: Dict[str, torch.Tensor],
         if convert_layouts and name.startswith(_DISCRIMINATORS):
             out[name] = want
             continue
-        if name not in sd:
+        key = name
+        if convert_layouts and _is_yolo(name.split(".", 1)[0]):
+            key = next((k for k in yolo_reference_names(name) if k in sd),
+                       name)
+        if key not in sd:
             missing.append(name)
             out[name] = want
             continue
-        v = sd[name]
+        v = sd[key]
         t = (v.detach().cpu() if isinstance(v, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(v)))
         if convert_layouts:
@@ -248,7 +286,7 @@ def reference_state_dict_to_port(sd: dict, target: Dict[str, torch.Tensor],
             out[name] = want
             continue
         out[name] = t.to(want.dtype).contiguous()
-        used.add(name)
+        used.add(key)
     if logger:
         unused = [k for k in sd if k not in used]
         if missing:

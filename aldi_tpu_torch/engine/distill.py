@@ -81,10 +81,14 @@ def roih_distill_losses(
 
 
 _HARD_KEYS = {  # standard loss -> the DISTILL flag that keeps it
+    # R-CNN (reference aldi/distill.py:175-180)
     "loss_cls": "HARD_ROIH_CLS_ENABLED",
     "loss_rpn_cls": "HARD_OBJ_ENABLED",
     "loss_rpn_loc": "HARD_RPN_REG_ENABLED",
     "loss_box_reg": "HARD_ROIH_REG_ENABLED",
+    # YOLO (reference aldi/yolo/distill.py:90-94); its loss_cls is above
+    "loss_obj": "HARD_OBJ_ENABLED",
+    "loss_box": "HARD_ROIH_REG_ENABLED",
 }
 
 

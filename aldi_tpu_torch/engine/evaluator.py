@@ -24,8 +24,9 @@ def inference_on_dataset(
     detector, dataset_name: str, cfg, batch_size: int = 8, logger=None,
     module=None,
 ) -> Dict[str, float]:
-    """AP of ``module`` (an RCNN: the EMA teacher, say; the detector's own
-    by default) on a registered dataset. Returns the ``bbox/AP``,
+    """AP of ``module`` (an RCNN or a YOLOv5, which runs in eval mode on
+    its running statistics: the EMA teacher, say; the detector's own by
+    default) on a registered dataset. Returns the ``bbox/AP``,
     ``bbox/AP50``, ... keys of ``evaluate_detections`` and
     ``images_per_sec`` (host clock over the inference loop, loading
     included)."""

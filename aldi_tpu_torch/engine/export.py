@@ -5,8 +5,11 @@ Port of ``aldi_tpu/engine/export.py``: ``make_serving_fn`` (``:43-58``),
 ``export_inference`` (``:61``), ``save_artifact`` (``:91``),
 ``ServingModel`` (``:128``) and ``load_artifact`` (``:145``), with the same
 names, arguments, calling convention and ``meta.json``. The student
-inference path (preprocess -> backbone -> proposals -> heads -> score
-threshold -> class-aware NMS -> top-k) is exported with ``torch.export``:
+inference path (R-CNN: preprocess -> backbone -> proposals -> heads ->
+score threshold -> class-aware NMS -> top-k; YOLO: preprocess -> network
+-> decode -> top 2000 -> class-aware NMS -> top-k, with its BatchNorm in
+eval mode, so the running statistics are constants of the graph) is
+exported with ``torch.export``:
 
 - weights are part of the exported program (no checkpoint needed at
   serving time),
@@ -69,13 +72,14 @@ def make_serving_fn(det, weights=None):
 
 class _Serving(nn.Module):
     """What is exported: ``forward(images, sizes)`` runs the detector's
-    inference body (``RCNNDetector.detect``) under ``no_grad`` and returns
-    (boxes, scores, classes, valid). The detector's weights are this
-    module's parameters."""
+    inference body (``RCNNDetector.detect`` or ``YoloDetector.detect``)
+    under ``no_grad`` and returns (boxes, scores, classes, valid). The
+    detector's weights (and YOLO's running statistics) are this module's
+    parameters and buffers."""
 
     def __init__(self, det):
         super().__init__()
-        self.rcnn = det.module
+        self.model = det.module
         self.det = det
 
     def forward(self, images, sizes):

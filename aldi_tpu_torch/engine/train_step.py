@@ -1,7 +1,7 @@
 """The ALDI++ DAOD training step.
 
 Port of ``aldi_tpu/engine/train_step.py:100-393`` for the R-CNN family
-(ResNet-FPN, ConvNeXt-FPN and ViTDet backbones), with
+(ResNet-FPN, ConvNeXt-FPN and ViTDet backbones) and YOLOv5, with
 the same stream logic: the EMA update before the step; the teacher pass
 (pseudo-labels and distill targets, no gradient); strong views of the
 labeled and unlabeled batches derived on the device; the student's streams
@@ -11,7 +11,11 @@ the distill stream on the pseudo-labels), each weighted ``n_s / n_eff`` as
 the reference's gradient accumulation weighs them (``n_eff`` counts the
 unlabeled batch once); one ``backward()`` per stream
 (``SOLVER.BACKWARD_AT_END: false``) or one for their sum (true); the
-optimizer step. With ``TPU.GRAD_ACCUM = k`` (``:334-378``) each stream
+optimizer step. YOLO's BatchNorm running statistics are the student's
+buffers: each stream's training-mode forward moves them, in the JAX
+step's order (per chunk: weak, strong, target_weak, distill; ``absorb``,
+``:213-217``), and the EMA blends them into the teacher's own. With
+``TPU.GRAD_ACCUM = k`` (``:334-378``) each stream
 splits into k equal chunks after the teacher pass and the strong views
 (computed once for the whole batch, as ``micro_full`` is): each chunk runs
 forward and backward on the same parameters with its own draws, its
@@ -40,6 +44,7 @@ import torch
 from ..config import resolve_canvas
 from ..data.strong_aug import strong_aug_draws, strong_augment
 from ..models.rcnn import check_trainable
+from ..models.resnet import FrozenBN
 from ..ops.matcher import sample_proposals_draws, subsample_indices_draws
 from ..solver import build_lr_schedule, build_optimizer, clip_gradients, set_lr
 from ..structures import Instances
@@ -78,13 +83,16 @@ def stream_flags(cfg) -> SimpleNamespace:
     )
 
 
-def _share_buffers(dst: torch.nn.Module, src: torch.nn.Module) -> None:
-    """Make ``dst``'s buffers (FrozenBN statistics) the very tensors of
-    ``src``, as the JAX state shares its ``frozen`` collection."""
+def _share_frozen_buffers(dst: torch.nn.Module, src: torch.nn.Module) -> None:
+    """Make the FrozenBN statistics of ``dst`` the very tensors of ``src``,
+    as the JAX state shares its ``frozen`` collection. Other buffers (YOLO's
+    BatchNorm running statistics, the JAX package's ``model_state``) stay
+    the teacher's own."""
     src_modules = dict(src.named_modules())
     for name, mod in dst.named_modules():
-        for b in mod._buffers:
-            mod._buffers[b] = src_modules[name]._buffers[b]
+        if isinstance(mod, FrozenBN):
+            for b in mod._buffers:
+                mod._buffers[b] = src_modules[name]._buffers[b]
 
 
 def create_train_state(cfg, detector, weights=None,
@@ -92,7 +100,8 @@ def create_train_state(cfg, detector, weights=None,
     """The training state around ``detector.module`` (the student), after
     loading ``weights`` (a state dict) if given. With EMA the teacher is a
     copy (``teacher_weights`` if given, else the student's), without
-    gradients, sharing the student's FrozenBN buffers."""
+    gradients, sharing the student's FrozenBN buffers and keeping its own
+    copy of every other buffer."""
     student = detector.module
     if weights is not None:
         student.load_state_dict(weights)
@@ -101,7 +110,7 @@ def create_train_state(cfg, detector, weights=None,
         teacher = copy.deepcopy(student).requires_grad_(False)
         if teacher_weights is not None:
             teacher.load_state_dict(teacher_weights)
-        _share_buffers(teacher, student)
+        _share_frozen_buffers(teacher, student)
     return TrainState(step=0, student=student, teacher=teacher,
                       optimizer=build_optimizer(cfg, student),
                       schedule=build_lr_schedule(cfg))
@@ -122,17 +131,30 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
     alignment (``"align"``) has no RPN loss: it takes the drop-path masks
     and, with instance alignment, the ROI sampler's draws over the
     proposals and one empty gt slot. With ``TPU.GRAD_ACCUM = k > 1`` each
-    student stream's entry is a list of k chunks' draws."""
+    student stream's entry is a list of k chunks' draws. YOLO has no
+    sampler and no drop path: its step draws only the strong views."""
     cfg = detector.cfg
     s = stream_flags(cfg)
     accum = grad_accum(cfg)
+    canvas = resolve_canvas(cfg)
+    aug = cfg.AUG
+    if not _has_samplers(cfg):
+        out = {}
+        if s.strong:
+            out["aug_labeled"] = strong_aug_draws(
+                gen, n_labeled, canvas, aug.LABELED_INCLUDE_RANDOM_ERASING,
+                aug.LABELED_MIC_AUG, aug.MIC_BLOCK_SIZE)
+        if s.distill:
+            out["aug_unlabeled"] = strong_aug_draws(
+                gen, n_unlabeled, canvas,
+                aug.UNLABELED_INCLUDE_RANDOM_ERASING, aug.UNLABELED_MIC_AUG,
+                aug.MIC_BLOCK_SIZE)
+        return to_device(out, detector.device)
     n_anchors = detector.anchors_cat.shape[0]
     rpn = detector.rpn_params
     k_rpn = min(rpn["batch_size_per_image"], n_anchors)
     n_cand = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + (
         cfg.TPU.MAX_GT if cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT else 0)
-    canvas = resolve_canvas(cfg)
-    aug = cfg.AUG
 
     def anchors(b):
         return subsample_indices_draws(gen, (b,), n_anchors, k_rpn,
@@ -187,6 +209,11 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
     return to_device(out, detector.device)
 
 
+def _has_samplers(cfg) -> bool:
+    """The R-CNN families sample anchors and ROIs; YOLO samples nothing."""
+    return cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN"
+
+
 def to_device(tree, device):
     """A nested dict (or list) of tensors moved to ``device``."""
     if isinstance(tree, dict):
@@ -221,7 +248,8 @@ def make_train_step(cfg, detector):
     the JAX package's keys (``loss_*_source_strong``, ``loss_*_distill``,
     ``loss_da_*_target_weak``, ...), ``total_loss`` and, with distillation,
     ``num_pseudo_labels``."""
-    check_trainable(cfg)
+    if _has_samplers(cfg):
+        check_trainable(cfg)
     s = stream_flags(cfg)
     accum = grad_accum(cfg)
     active = [n for n, on in (("weak", s.weak), ("strong", s.strong),
@@ -287,21 +315,21 @@ def make_train_step(cfg, detector):
             if name == "weak":
                 losses, _ = detector.forward_train(
                     student, m["lab"]["image"], m["lab"]["sizes"], m["gt"],
-                    d["weak"], do_align=s.align, domain_label=1.0)
+                    d.get("weak"), do_align=s.align, domain_label=1.0)
                 return weighted(losses, "source_weak", n_lw / n_eff)
             if name == "strong":
                 losses, _ = detector.forward_train(
                     student, m["ls"], m["lab"]["sizes"], m["gt"],
-                    d["strong"], do_align=s.align, domain_label=1.0)
+                    d.get("strong"), do_align=s.align, domain_label=1.0)
                 return weighted(losses, "source_strong", n_ls / n_eff)
             if name == "align":
                 losses = detector.forward_domain_align(
-                    student, m["uw"]["image"], m["uw"]["sizes"], d["align"],
-                    domain_label=0.0)
+                    student, m["uw"]["image"], m["uw"]["sizes"],
+                    d.get("align"), domain_label=0.0)
                 return weighted(losses, "target_weak", n_uw / n_eff)
             std, s_aux = detector.forward_train(
                 student, m["us"], m["uw"]["sizes"], m["pseudo"],
-                d["distill"])
+                d.get("distill"))
             losses = gate_hard_losses(std, cfg)
             if s.soft:
                 losses.update(detector.distill_losses(teacher, m["ctx"],
@@ -318,7 +346,7 @@ def make_train_step(cfg, detector):
         for c in range(accum):
             m = _chunk(full, c, accum)
             d = draws if accum == 1 else {
-                n: draws[n][c] for n in active}
+                n: draws[n][c] for n in active if n in draws}
             at = f" (chunk {c + 1} of {accum})" if accum > 1 else ""
             if cfg.SOLVER.BACKWARD_AT_END or len(active) <= 1:
                 losses = {}

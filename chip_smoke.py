@@ -110,7 +110,23 @@ failure exits non-zero:
    and K1a/K1b held against their plain versions and timed at each of
    the first run's first step's own launches (24 + 24 images: their real
    boxes, levels, anchors and gt), as in the training phase.
-7. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
+7. YOLO phase, YOLOv5-m of ``configs/cityscapes/ALDI-Yolo-Cityscapes.yaml``
+   (depth 0.67, width 0.75, 8 classes, bfloat16, ``seeded_weights``),
+   whose paths launch none of the six kernels (asserted on each path):
+   serving (1 warm-up + 3 timed requests of 8 images of 1024x2048, a
+   request by stage, a traced request whose layout conversions must be
+   none); the ALDI-Yolo DAOD step at 4 + 4 (DOMAIN_ADAPT.TEACHER.THRESHOLD
+   0, since the seeded weights score below the published 0.8; 1 warm-up +
+   3 timed steps, each checked: finite losses, pseudo-labels, every
+   BatchNorm running statistic of the
+   student moved, the teacher's equal to ``alpha t + (1 - alpha) s`` of
+   the step before, all parameters moved; a step by stage, a traced step),
+   the same with image-level alignment on p5 (the target_weak stream),
+   and one step at the published SOLVER.IMS_PER_GPU of 12 + 12 (its peak,
+   or that it does not fit); the artifact as in phase 4 (bitwise equal to
+   eager, no kernel op in the graph); and a tiny float32 YOLOv5-n DAOD step
+   on the card against the same step on the CPU.
+8. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
    line and, last, ``{"ok": true, "device": {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
@@ -132,6 +148,12 @@ VIT_ALDI = os.path.join(ROOT, "configs", "cityscapes",
                         "ALDI-Best-ViT-Cityscapes.yaml")
 CONVNEXT_ALDI = os.path.join(ROOT, "configs", "cityscapes",
                              "ALDI-Best-ConvNeXt-Cityscapes.yaml")
+YOLO_ALDI = os.path.join(ROOT, "configs", "cityscapes",
+                         "ALDI-Yolo-Cityscapes.yaml")
+# YOLO's image-level alignment, on p5 as the reference's YoloAlignMixin
+YOLO_ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
+              "DOMAIN_ADAPT.ALIGN.IMG_DA_LAYER": "p5"}
+YOLO_PUBLISHED_CHUNK = 12  # SOLVER.IMS_PER_GPU of configs/Base-Yolo.yaml
 # the aligned flagship: both discriminators on, the rest of
 # DOMAIN_ADAPT.ALIGN at its defaults
 ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
@@ -776,9 +798,11 @@ def conditioned_weights(state_dict, seed):
     return out
 
 
-def check_detections(out, sizes, num_classes, max_det):
+def check_detections(out, sizes, num_classes, max_det, nonempty=True):
     """Finite values of the expected shape; valid boxes inside their
-    image, classes in range."""
+    image (with ``nonempty``, of positive width and height: YOLO keeps a
+    candidate that clipping to its image leaves empty, as the JAX package
+    does), classes in range."""
     import torch
 
     b = sizes.shape[0]
@@ -797,8 +821,8 @@ def check_detections(out, sizes, num_classes, max_det):
     h = sizes[:, 0, None].float().expand_as(v)[v]
     w = sizes[:, 1, None].float().expand_as(v)[v]
     x0, y0, x1, y1 = bx[v].unbind(-1)
-    if not ((x0 >= 0) & (y0 >= 0) & (x1 <= w) & (y1 <= h) & (x1 > x0)
-            & (y1 > y0)).all():
+    pos = ((x1 > x0) & (y1 > y0)) if nonempty else ((x1 >= x0) & (y1 >= y0))
+    if not ((x0 >= 0) & (y0 >= 0) & (x1 <= w) & (y1 <= h) & pos).all():
         fail("a valid box lies outside its image")
     c = out["classes"][v]
     if not ((c >= 0) & (c < num_classes)).all():
@@ -1667,8 +1691,9 @@ def artifact_phase(card, config, kernels, per_request):
         out = model(images, sizes)
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
-        n_det += check_detections(out, sizes, det.num_classes,
-                                  cfg.TEST.DETECTIONS_PER_IMAGE)
+        n_det += check_detections(
+            out, sizes, det.num_classes, cfg.TEST.DETECTIONS_PER_IMAGE,
+            nonempty=cfg.MODEL.META_ARCHITECTURE != "Yolo")
         outs.append(out)
     launches = {k.name: k.launches for k in kernels}
     want = {k.name: n * TIMED_REQUESTS for k, n in zip(
@@ -2430,6 +2455,427 @@ def trainer_phase(card, kernels):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- YOLOv5
+def yolo_config(overrides=None):
+    """The ALDI-Yolo recipe (YOLOv5-m, 8 classes, bfloat16) with
+    ``overrides``."""
+    return config_of(YOLO_ALDI, overrides)
+
+
+def no_launches(name, kernels):
+    """The six kernels' launch counts since they were last set to 0, which
+    a YOLO path must leave at 0 (its convolutions run on cuDNN, its NMS is
+    plain PyTorch)."""
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        fail(f"the {name} path launched a kernel of the R-CNN paths: "
+             f"{launches}")
+    return launches
+
+
+def staged_yolo_request(det, images, sizes):
+    """One YOLO request with a synchronize after each stage: ms per
+    stage."""
+    import torch
+
+    from aldi_tpu_torch.models.yolo import decode_predictions
+
+    stages = {}
+    t = time.perf_counter()
+
+    def mark(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = (now - t) * 1e3
+        t = now
+
+    with torch.inference_mode():
+        x = det.preprocess(images).permute(0, 3, 1, 2)
+        mark("preprocess")
+        preds, _ = det.module.eval()(x)
+        mark("network (79 conv + BatchNorm + SiLU, eval mode)")
+        decode_predictions(preds, det.num_classes, det.conf_thresh)
+        mark("decode (sigmoid, boxes, best class)")
+        det._inference_from_preds(preds, sizes)
+        mark("decode + top 2000 + class-aware NMS + top-k")
+    return stages
+
+
+def yolo_serving_phase(card, kernels):
+    """YOLOv5-m of ``configs/cityscapes/ALDI-Yolo-Cityscapes.yaml`` through
+    ``build_detector`` and ``make_serving_fn`` with ``seeded_weights``: one
+    warm-up and 3 timed requests of 8 images of 1024x2048, checked; a
+    request by stage and a traced one (device busy and idle share, top
+    kernels, layout conversions, which must be none). Returns the six
+    kernels' launches in the timed requests (all 0)."""
+    import torch
+
+    from aldi_tpu_torch.engine.export import make_serving_fn
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.models.yolo import ANCHORS, STRIDES
+
+    cfg = yolo_config()
+    name = model_name(cfg)
+    t0 = time.perf_counter()
+    det = build_detector(cfg)
+    fn = make_serving_fn(det, seeded_weights(det, seed=0))
+    torch.cuda.synchronize()
+    n_cand = sum(len(a) * math.ceil(det.canvas[0] / s)
+                 * math.ceil(det.canvas[1] / s)
+                 for a, s in zip(ANCHORS, STRIDES))
+    print(f"[serving] {name}, {det.num_classes} classes, canvas {det.canvas}, "
+          f"{str(det.dtype).split('.')[-1]}, "
+          f"{sum(p.numel() for p in det.module.parameters())} parameters; "
+          f"{n_cand} candidates per image; built and seeded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [synthetic_request(gen, det.canvas)
+                for _ in range(1 + TIMED_REQUESTS)]
+    t0 = time.perf_counter()
+    fn(*requests[0])
+    torch.cuda.synchronize()
+    print(f"[serving] {name} warm-up request: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    latencies, n_det = [], 0
+    for images, sizes in requests[1:]:
+        t0 = time.perf_counter()
+        out = fn(images, sizes)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        n_det += check_detections(out, sizes, det.num_classes,
+                                  cfg.TEST.DETECTIONS_PER_IMAGE,
+                                  nonempty=False)
+    launches = no_launches(f"{name} serving", kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if n_det == 0:
+        fail(f"{name}: no valid detections in any request")
+    if det.module.training:
+        fail(f"{name}: serving left the module in training mode")
+    med = median(latencies)
+    print(f"[serving] {name}, {TIMED_REQUESTS} requests of {BATCH} images: "
+          f"latency ms {fmt(latencies)} (median {med:.2f}), "
+          f"{BATCH * 1e3 / med:.2f} images/s at the median; {n_det} valid "
+          f"detections; launches {launches}; peak device memory {peak:.2f} "
+          f"GiB; card {card}", flush=True)
+    images, sizes = requests[-1]
+    stages = staged_yolo_request(det, images, sizes)
+    print(f"[serving] {name}, one request by stage (ms, synchronized): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    traced = device_busy(lambda: fn(images, sizes))
+    if traced is None:
+        print(f"[serving] {name} device busy share: not measured (the "
+              "profiler saw no device events)")
+    else:
+        busy, top, per_kernel, converters = traced
+        print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
+              f"of the {med:.2f} ms median request, idle share "
+              f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
+              + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
+              flush=True)
+        print(f"[serving] {name}, traced request: "
+              + layout_conversions(per_kernel, converters), flush=True)
+        if any(kind in k for k in per_kernel for kind in CONVERSIONS):
+            fail(f"{name}: the serving path converts layouts")
+    del det, fn, requests, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bn_stats(module):
+    """Copies of a module's BatchNorm running statistics."""
+    return {k: v.detach().clone() for k, v in module.named_buffers()}
+
+
+def ema_of(teacher, student, alpha):
+    """The worst |t' - (alpha t + (1 - alpha) s)| over the statistics,
+    relative to each tensor's scale, of the teacher ``t'`` after a step
+    (``teacher``: its statistics before and after; ``student``: the
+    student's before)."""
+    before, after = teacher
+    return max(float((after[k] - (before[k] * alpha + student[k] * (1 - alpha))
+                      ).abs().max()) / max(float(after[k].abs().max()), 1e-12)
+               for k in after)
+
+
+def yolo_training_phase(card, kernels, overrides=None, n=TRAIN_IMAGES,
+                        timed=TIMED_STEPS, label=None):
+    """The ALDI-Yolo DAOD step of YOLOv5-m (with ``overrides``) at full
+    width and depth through ``create_train_state``, ``draw_step`` and
+    ``make_train_step``: SOLVER.IMS_PER_BATCH cut from 48 to ``2 n`` (n
+    labeled + n unlabeled images of 1024x2048), seeded weights, synthetic
+    images and 5-30 gt boxes per labeled image. One warm-up step and
+    ``timed`` timed steps; checks at every timed step: finite losses, the
+    student's running statistics moved, the teacher's equal ``alpha t + (1
+    - alpha) s`` of the statistics before the step (the EMA runs before the
+    streams), the trainable parameters moved. Then a step by stage and a
+    traced step. Returns (launches of the six kernels in the timed steps,
+    all 0; the median step ms; the peak GiB). With ``timed`` 0 only the
+    warm-up step runs, and an out-of-memory error returns None."""
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step,
+                                                  stream_flags)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = yolo_config(overrides)
+    name = label or model_name(cfg)
+    print(f"[train] {name} reductions: SOLVER.IMS_PER_BATCH "
+          f"{cfg.SOLVER.IMS_PER_BATCH} -> {2 * n} ({n} labeled + {n} "
+          f"unlabeled images per step); DOMAIN_ADAPT.TEACHER.THRESHOLD "
+          f"{cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD} -> 0 (the seeded weights' "
+          f"detections score below it: at 0 each unlabeled image's "
+          f"{cfg.TEST.DETECTIONS_PER_IMAGE} detections are its "
+          f"pseudo-labels, so the distill stream's classification and "
+          f"regression terms run); widths, depth and canvas as published",
+          flush=True)
+    cfg.SOLVER.IMS_PER_BATCH = 2 * n
+    cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD = 0.0
+    t0 = time.perf_counter()
+    det = build_detector(cfg)
+    state = create_train_state(cfg, det, seeded_weights(det, seed=0))
+    step = make_train_step(cfg, det)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_steps = 1 + timed + (2 if timed else 0)  # warm-up, timed, staged, traced
+    batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
+                                     det.num_classes, n)
+               for _ in range(n_steps)]
+    draws = [draw_step(gen, det, n, n) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    print(f"[train] {name}, {det.num_classes} classes, canvas {det.canvas}, "
+          f"{str(det.dtype).split('.')[-1]}, SGD (Nesterov "
+          f"{cfg.SOLVER.NESTEROV}), BACKWARD_AT_END "
+          f"{cfg.SOLVER.BACKWARD_AT_END}; state, batches and draws made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    start = params_of(state.student)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state, m = step(state, batches[0], draws[0])
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        if timed:
+            raise
+        print(f"[train] {name}: does not fit on the card: "
+              f"{str(e).splitlines()[0]}; card {card}", flush=True)
+        del state, batches, draws, det
+        torch.cuda.empty_cache()
+        return None
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not timed:
+        launches = no_launches(name, kernels)
+        mm = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in mm.values()):
+            fail(f"{name}: non-finite losses: {mm}")
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(f"[train] {name}: one step (the first, cold) "
+              f"{warm_ms:.1f} ms; it fits, peak device memory {peak:.2f} GiB "
+              f"of {total:.2f} GiB, without TPU.GRAD_ACCUM; card {card}",
+              flush=True)
+        del state, batches, draws, det
+        torch.cuda.empty_cache()
+        return launches, warm_ms, peak
+    print(f"[train] {name} warm-up step: {warm_ms:.1f} ms", flush=True)
+
+    alpha = cfg.EMA.ALPHA
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, stat_moves, ema_errs = [], [], [], []
+    for i in range(1, 1 + timed):
+        s_before, t_before = bn_stats(state.student), bn_stats(state.teacher)
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i], draws[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        s_after = bn_stats(state.student)
+        stat_moves.append(sum(not torch.equal(s_after[k], v)
+                              for k, v in s_before.items()))
+        ema_errs.append(ema_of((t_before, bn_stats(state.teacher)),
+                               s_before, alpha))
+        del s_before, t_before, s_after
+    launches = no_launches(f"{name} training", kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, mm in enumerate(metrics):
+        bad = [k for k, v in mm.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{name}: non-finite losses at timed step {i}: {bad}")
+        if not mm["num_pseudo_labels"] > 0:
+            fail(f"{name}: no pseudo-labels at timed step {i}")
+    n_stats = len(bn_stats(state.student))
+    if min(stat_moves) < n_stats:
+        fail(f"{name}: only {min(stat_moves)} of {n_stats} running "
+             "statistics of the student moved in a step")
+    if max(ema_errs) > 1e-6:
+        fail(f"{name}: the teacher's statistics are not alpha t + (1 - "
+             f"alpha) s of the step before: worst relative error "
+             f"{max(ema_errs):.3g}")
+    if stream_flags(cfg).align:
+        want = {f"loss_da_img_{s}" for s in ("source_strong", "target_weak")}
+        if not want <= set(metrics[-1]):
+            fail(f"{name}: alignment losses missing: "
+                 f"{sorted(want - set(metrics[-1]))}")
+    moved = sum(not torch.equal(p.detach(), start[k])
+                for k, p in state.student.named_parameters())
+    n_trainable = sum(p.requires_grad for p in state.student.parameters())
+    if moved < n_trainable:
+        fail(f"{name}: only {moved} of {n_trainable} trainable parameters "
+             "moved")
+    med = median(times)
+    print(f"[train] {name}, {timed} steps: ms {fmt(times)} (median "
+          f"{med:.2f}), {2 * n * 1e3 / med:.2f} images/s at the median; "
+          f"launches {launches}; peak device memory {peak:.2f} GiB; "
+          f"num_pseudo_labels {[mm['num_pseudo_labels'] for mm in metrics]};"
+          f" per step all {n_stats} running statistics of the student moved "
+          f"and the teacher's are the EMA (alpha {alpha}) of the step before "
+          f"(worst relative error {max(ema_errs):.3g}, tol 1e-6); {moved} of "
+          f"{n_trainable} trainable parameters moved; card {card}",
+          flush=True)
+    print(f"[train] {name}, losses of the last timed step: " + json.dumps(
+        {k: round(v, 5) for k, v in metrics[-1].items()}), flush=True)
+
+    stages = {}
+    t = [time.perf_counter()]
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[stage] = (now - t[0]) * 1e3
+        t[0] = now
+
+    torch.cuda.synchronize()
+    t[0] = time.perf_counter()
+    state, _ = step(state, batches[-2], draws[-2], mark=mark)
+    print(f"[train] {name}, one step by stage (ms, synchronized): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    traced = device_busy(lambda: step(state, batches[-1], draws[-1]))
+    if traced is None:
+        print(f"[train] {name} device busy share: not measured (the profiler "
+              "saw no device events)")
+    else:
+        busy, top, per_kernel, converters = traced
+        print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
+              f"{med:.2f} ms median step, idle share "
+              f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
+              + "; ".join(f"{k[:60]} {ms:.2f} ms x{n} " for k, ms, n in top),
+              flush=True)
+        print(f"[train] {name}, traced step: "
+              + layout_conversions(per_kernel, converters), flush=True)
+    del state, batches, draws, det
+    torch.cuda.empty_cache()
+    return launches, med, peak
+
+
+def tiny_yolo_train_reference_check():
+    """One ALDI-Yolo DAOD step of a tiny float32 YOLO (yolov5n, 3 classes,
+    canvas 128, 2 + 2 images, MAX_GT 8) on the card against the same step
+    on the CPU: the same seeded weights, batch and draws (made on the CPU
+    and moved), TF32 off. The card's teacher pass is held against the
+    CPU's (pseudo-labels' valid flags and classes equal, boxes within 1e-3
+    px, predictions within 1e-4 of their scale), and the card's step goes
+    on from the CPU's: a pseudo-label box one ulp apart could fall on
+    another cell. Losses within 1e-4 relative, parameters and running
+    statistics within 1e-5, the teacher's statistics too."""
+    import numpy as np
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = yolo_config({"MODEL.YAML": "yolov5://yolov5n.yaml",
+                       "MODEL.YOLO.NUM_CLASSES": 3, "TPU.CANVAS": (128, 128),
+                       "TPU.MAX_GT": 8, "TPU.COMPUTE_DTYPE": "float32",
+                       "TEST.DETECTIONS_PER_IMAGE": 10,
+                       "SOLVER.WARMUP_ITERS": 0, "EMA.ALPHA": 0.9,
+                       "DOMAIN_ADAPT.TEACHER.THRESHOLD": 0.1})
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    boxes[:, :3, :2] = rng.uniform(0, 80, (2, 3, 2))
+    boxes[:, :3, 2:] = boxes[:, :3, :2] + rng.uniform(12, 48, (2, 3, 2))
+    batch = {"labeled": {
+        "image": rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32),
+        "sizes": np.array([[128, 128], [112, 120]], np.int32),
+        "boxes": boxes, "classes": rng.integers(0, 3, (2, 8)).astype(
+            np.int32), "valid": np.arange(8)[None].repeat(2, 0) < 3},
+        "unlabeled": {
+        "image": rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32),
+        "sizes": np.array([[128, 128], [120, 100]], np.int32)}}
+    batch = {s: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+             for s, d in batch.items()}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx_err = []
+    try:
+        cpu, card = build_detector(cfg, device="cpu"), build_detector(cfg)
+        weights = seeded_weights(cpu, seed=1)
+        draws = draw_step(torch.Generator().manual_seed(3), cpu, 2, 2)
+        saved = {}
+        cpu_ctx, card_ctx = cpu.forward_teacher_ctx, card.forward_teacher_ctx
+
+        def record(*args, **kwargs):
+            saved["cpu"] = cpu_ctx(*args, **kwargs)
+            return saved["cpu"]
+
+        def from_cpu(*args, **kwargs):
+            (ctx, pseudo, _), want = card_ctx(*args, **kwargs), moved(
+                saved["cpu"], card.device)
+            w_ctx, w_pseudo, _ = want
+            m = w_pseudo.valid
+            if not (torch.equal(pseudo.valid, m) and m.any() and torch.equal(
+                    pseudo.classes[m], w_pseudo.classes[m])):
+                fail("tiny YOLO teacher: pseudo-labels differ between card "
+                     "and CPU")
+            ctx_err.append(float((pseudo.boxes[m] - w_pseudo.boxes[m]).abs()
+                                 .max()))
+            ctx_err.append(max(
+                float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(ctx["head_outputs"], w_ctx["head_outputs"])))
+            return want
+
+        cpu.forward_teacher_ctx, card.forward_teacher_ctx = record, from_cpu
+        results = []
+        for det in (cpu, card):
+            state = create_train_state(cfg, det, weights)
+            state, m = make_train_step(cfg, det)(
+                state, moved(batch, det.device), moved(draws, det.device))
+            results.append(({k: float(v) for k, v in m.items()},
+                            {k: v.detach().cpu() for k, v in
+                             state.student.state_dict().items()},
+                            {k: v.detach().cpu() for k, v in
+                             state.teacher.state_dict().items()}))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (want_m, want_s, want_t), (got_m, got_s, got_t) = results
+    loss_err = max(abs(got_m[k] - v) / max(abs(v), 1e-3)
+                   for k, v in want_m.items())
+    s_err = max(float((got_s[k] - v).abs().max()) for k, v in want_s.items())
+    t_err = max(float((got_t[k] - v).abs().max()) for k, v in want_t.items())
+    losses = json.dumps({k: round(v, 5) for k, v in want_m.items()})
+    print(f"[reference] tiny float32 YOLOv5-n DAOD step (SGD, Nesterov), "
+          f"card vs CPU: losses {losses}; "
+          f"teacher pass: pseudo-labels equal, boxes max abs err "
+          f"{ctx_err[0]:.3g} (tol 1e-3), predictions max err / scale "
+          f"{ctx_err[1]:.3g} (tol 1e-4); worst relative loss error "
+          f"{loss_err:.3g} (tol 1e-4); student parameters and running "
+          f"statistics max abs err {s_err:.3g}, teacher's {t_err:.3g} (tol "
+          f"1e-5)", flush=True)
+    if (ctx_err[0] > 1e-3 or ctx_err[1] > 1e-4 or loss_err > 1e-4
+            or s_err > 1e-5 or t_err > 1e-5):
+        fail("tiny YOLO DAOD step: card and CPU disagree")
+
+
 def fmt(xs, digits=2):
     return ", ".join(f"{x:.{digits}f}" for x in xs)
 
@@ -2442,10 +2888,13 @@ CONVNEXT_SIZES = {(96, 9): "T", (96, 27): "S", (128, 27): "B",
 
 
 def model_name(cfg):
-    """"R50-FPN", "ConvNeXt-L" or "ViTDet-B" for the log lines, with
-    " align" when a discriminator is on."""
+    """"R50-FPN", "ConvNeXt-L", "ViTDet-B" or "YOLOv5-m" for the log
+    lines, with " align" when a discriminator is on."""
     name = cfg.MODEL.BACKBONE.NAME
-    if name.startswith("build_vitdet"):
+    if cfg.MODEL.META_ARCHITECTURE == "Yolo":
+        variant = cfg.MODEL.YAML.split("//")[-1].replace(".yaml", "")
+        out = "YOLOv5-" + variant[len("yolov5"):]
+    elif name.startswith("build_vitdet"):
         out = f"ViTDet-{name.split('_')[2].upper()}"
     elif name == "build_convnext_fpn_backbone":
         c = cfg.MODEL.CONVNEXT
@@ -2594,7 +3043,23 @@ def main():
     del recorded
     torch.cuda.empty_cache()
 
-    # -- 7. result lines. ``launches``: K1/K2 from the flagship's timed
+    # -- 7. YOLOv5-m: serving, the DAOD step (and with image-level
+    # alignment, and once at the published chunk of 12 + 12), the artifact
+    # and the tiny card-vs-CPU step. None of the six kernels is on its
+    # paths: each path must launch none
+    yolo_launches = {"YOLOv5-m serving": yolo_serving_phase(card,
+                                                           vit_kernels)}
+    yolo_launches["YOLOv5-m training"] = yolo_training_phase(
+        card, vit_kernels)[0]
+    yolo_launches["YOLOv5-m align training"] = yolo_training_phase(
+        card, vit_kernels, YOLO_ALIGN)[0]
+    yolo_training_phase(card, vit_kernels, n=YOLO_PUBLISHED_CHUNK, timed=0,
+                        label="YOLOv5-m at the published SOLVER.IMS_PER_GPU")
+    yolo_launches["YOLOv5-m artifact"] = artifact_phase(
+        card, YOLO_ALDI, vit_kernels, {})
+    tiny_yolo_train_reference_check()
+
+    # -- 8. result lines. ``launches``: K1/K2 from the flagship's timed
     # training steps, K3a/K3b from ViTDet-B's; ``launches_by_path`` has
     # every path's count (K2's forward and K3a also serve). The other
     # numbers: the kernel phase's, at the paths' shapes (K2's forward on a
@@ -2610,7 +3075,8 @@ def main():
                "R50-FPN eval": {"roi_align_fwd":
                                 eval_launches["roi_align_fwd"]},
         **{f"{m} serving": v for m, v in serving_launches.items()},
-        **{f"{m} artifact": v for m, v in artifact_launches.items()}}
+        **{f"{m} artifact": v for m, v in artifact_launches.items()},
+        **yolo_launches}
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} "
           "s", flush=True)
     print(f"[card] {card}")

@@ -45,7 +45,9 @@ from tests import torch_port_draws as draws_from
 from tests.test_torch_port_train_step import (close_rel, daod_cfg, jax_tree,
                                               make_batch, torch_tree)
 from tests.torch_port_common import (max_err, seeded_variables,
-                                     teacher_ctx_from_jax, torch_threads)
+                                     teacher_ctx_from_jax)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
+from tests.torch_port_threads import torch_threads
 
 ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
          "DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED": True}

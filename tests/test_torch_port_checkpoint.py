@@ -31,9 +31,11 @@ from aldi_tpu_torch.engine.checkpoint_convert import jax_variables_to_state_dict
 from aldi_tpu_torch.engine.train_step import create_train_state
 from aldi_tpu_torch.models import build_detector
 from tests.torch_port_common import (drop_weight_files, seeded_variables,
-                                     tiny_cfg, tiny_vit, torch_threads)
+                                     tiny_cfg, tiny_vit)
 from tests.torch_rcnn_oracle import build_r50_fpn_rcnn, randomize
 from tests.torch_vit_oracle import build_sfp, build_vit_trunk
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
+from tests.torch_port_threads import torch_threads
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -64,8 +64,10 @@ from tests.torch_convnext_oracle import (build_convnext, convnext_forward,
 from tests.torch_port_common import (drop_weight_files, loader_cfg, max_err,
                                      register_synthetic_both,
                                      seeded_variables, teacher_ctx_from_jax,
-                                     tiny_images, torch_threads)
+                                     tiny_images)
 from tests.torch_rcnn_oracle import randomize
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
+from tests.torch_port_threads import torch_threads
 
 CONVNEXT_ALDI = "configs/cityscapes/ALDI-Best-ConvNeXt-Cityscapes.yaml"
 DEPTHS, DIMS = (1, 1, 2, 1), (8, 16, 32, 64)

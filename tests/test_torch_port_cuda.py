@@ -42,6 +42,7 @@ from chip_smoke import (ALIGN, CONVNEXT_ALDI, FLAGSHIP, VIT_ALDI,
                         tiny_vit)
 from torch_port_match_cases import CASES as MATCH_CASES
 from torch_port_match_cases import match_case
+from torch_port_threads import capped_torch_threads  # noqa: F401
 
 STRIDES = [4, 8, 16, 32]
 pytestmark = pytest.mark.cuda

@@ -30,6 +30,7 @@ from tests.shift_benchmark import make_shift_split as jax_make_shift_split
 from tests.synthetic_data import make_synthetic_coco
 from tests.torch_port_common import (loader_cfg, register_synthetic_both,
                                      tiny_cfg)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -24,7 +24,9 @@ from aldi_tpu.engine.coco_eval import \
 from aldi_tpu_torch.data import catalog as port_catalog
 from aldi_tpu_torch.engine.coco_eval import evaluate_detections
 from tests.torch_port_common import (loader_cfg, register_synthetic_both,
-                                     tiny_detectors, torch_threads)
+                                     tiny_detectors)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
+from tests.torch_port_threads import torch_threads
 
 
 @pytest.fixture(scope="module", autouse=True)

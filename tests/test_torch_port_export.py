@@ -33,6 +33,7 @@ from aldi_tpu_torch.ops.roi_align_kernel import roi_align_fwd
 from tests.torch_port_common import (drop_weight_files, max_err,
                                      seeded_variables, tiny_cfg, tiny_images,
                                      tiny_vit, vitdet_head_config)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 FLAGSHIP = str(Path(__file__).resolve().parents[1] / "configs" / "cityscapes"
                / "ALDI-Best-Cityscapes.yaml")

@@ -18,6 +18,7 @@ import torch
 from aldi_tpu_torch.ops.flash_attn import (attn_delta, flash_attn_plain,
                                            flash_attn_plain_backward,
                                            flash_attn_split_backward)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 NAMES = ("dq", "dk", "dv", "dbh", "dbw")
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from aldi_tpu_torch.data import strong_aug
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 RECIPES = {"labeled": (True, False), "unlabeled": (False, True)}
 

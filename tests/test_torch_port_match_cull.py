@@ -28,6 +28,7 @@ from aldi_tpu_torch.ops.match_kernel import (low_quality_mask_culled,
                                              match_iou_culled,
                                              match_iou_plain)
 from tests.torch_port_match_cases import CASES, canvas_anchors, match_case
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 
 def _bits(x):

@@ -29,6 +29,7 @@ from aldi_tpu_torch.models.roi_heads import fast_rcnn_inference
 from aldi_tpu_torch.models.rpn import generate_proposals
 from tests.torch_port_common import (max_err, seeded_variables,
                                      tiny_detectors, tiny_images)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 FLAGSHIP = "configs/cityscapes/ALDI-Best-Cityscapes.yaml"
 

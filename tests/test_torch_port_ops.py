@@ -27,6 +27,7 @@ from aldi_tpu_torch.ops import nms as port_nms
 from aldi_tpu_torch.ops import roi_align as port_roi
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_fwd
 from tests.torch_port_common import max_err
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 
 def random_boxes(rng, shape, size=100.0):

@@ -21,6 +21,7 @@ import torch
 from aldi_tpu_torch.ops.roi_align import (TILE, box_levels, roi_align_plain_backward,
                                           roi_align_tiled_backward,
                                           roi_tile_terms, sample_geometry)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 STRIDES = [4, 8, 16, 32]
 CANVAS = (64, 96)  # levels 16x24, 8x12, 4x6, 2x3

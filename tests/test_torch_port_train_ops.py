@@ -48,6 +48,7 @@ from aldi_tpu_torch.solver import (build_lr_schedule, build_optimizer,
                                    clip_gradients, set_lr)
 from tests import torch_port_draws as draws_from
 from tests.torch_port_common import max_err
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 STRIDES = [4, 8, 16, 32]
 
@@ -373,15 +374,31 @@ def test_ema_update_matches_jax():
             m.register_parameter(k, torch.nn.Parameter(t(v)))
         return m
 
+    stats_s = rng.standard_normal(6).astype(np.float32)
+    stats_e = rng.standard_normal(6).astype(np.float32)
     for step in (0, 5):
         want = jax_ema_update({k: jnp.asarray(v) for k, v in e_np.items()},
                               {k: jnp.asarray(v) for k, v in s_np.items()},
                               0.9996, step, start_iter=0)
-        teacher = module(e_np)
-        ema_update(teacher, module(s_np), 0.9996, step, start_iter=0)
+        # a floating buffer (YOLO's running statistics, the JAX state's
+        # model_state) is blended like a parameter; a buffer the teacher
+        # shares with the student (FrozenBN) stays bitwise as it is
+        want_stats = jax_ema_update({"s": jnp.asarray(stats_e)},
+                                    {"s": jnp.asarray(stats_s)}, 0.9996,
+                                    step, start_iter=0)["s"]
+        teacher, student = module(e_np), module(s_np)
+        teacher.register_buffer("stats", t(stats_e))
+        student.register_buffer("stats", t(stats_s))
+        shared = t(stats_s * 3)
+        teacher.register_buffer("frozen", shared)
+        student.register_buffer("frozen", shared)
+        ema_update(teacher, student, 0.9996, step, start_iter=0)
         for k in shapes:
             close(getattr(teacher, k).detach().numpy(), want[k],
                   what=f"ema step {step} {k}")
+        close(teacher.stats.numpy(), want_stats, what=f"ema step {step} stats")
+        assert teacher.frozen is shared
+        assert torch.equal(shared, t(stats_s * 3))
 
 
 def test_pseudo_labels_match_jax():

@@ -39,6 +39,7 @@ from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 from aldi_tpu_torch.structures import Instances
 from tests import torch_port_draws as draws_from
 from tests.torch_port_common import max_err, seeded_variables
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 FLAGSHIP = "configs/cityscapes/ALDI-Best-Cityscapes.yaml"
 KERNELS = (match_iou, low_quality_mask, roi_align_fwd, roi_align_bwd)

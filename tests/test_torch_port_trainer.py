@@ -41,7 +41,9 @@ from tests.test_torch_port_train_step import (close_rel, daod_cfg, jax_tree,
                                               torch_tree)
 from tests.torch_port_common import (drop_weight_files, loader_cfg,
                                      max_err, register_synthetic_both,
-                                     seeded_variables, torch_threads)
+                                     seeded_variables)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
+from tests.torch_port_threads import torch_threads
 
 SEED = 7
 LOSS_KEYS = {"num_pseudo_labels", "total_loss", "loss_rpn_cls_source_strong",

@@ -43,6 +43,7 @@ from aldi_tpu_torch.ops.flash_attn_kernel import flash_attn_bwd, flash_attn_fwd
 from tests.torch_port_common import (max_err, seeded_variables, tiny_cfg,
                                      tiny_images, tiny_vit,
                                      vitdet_head_config)
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

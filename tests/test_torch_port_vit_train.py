@@ -51,6 +51,7 @@ from tests import torch_port_draws as draws_from
 from tests.test_torch_port_train_step import (close_rel, jax_tree, make_batch,
                                               torch_tree)
 from tests.torch_port_common import max_err, seeded_variables, tiny_vit
+from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 VIT_ALDI = "configs/cityscapes/ALDI-Best-ViT-Cityscapes.yaml"
 LR = 1e-3

@@ -164,21 +164,6 @@ def loader_cfg(cfg, names):
     return cfg
 
 
-@contextlib.contextmanager
-def torch_threads(n):
-    """PyTorch's intra-op threads set to ``n`` for the duration (the tests
-    run in several worker processes at once: eight threads each
-    oversubscribe the cores)."""
-    import torch
-
-    saved = torch.get_num_threads()
-    torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 def drop_weight_files(root):
     """Delete the ``.pth`` and ``.pkl`` files under ``root``: a test's
     checkpoints of a full-width ResNet take hundreds of MB each, and pytest
@@ -238,3 +223,52 @@ def teacher_ctx_from_jax(det, jdet, variables, images, sizes, key):
         yield want
     finally:
         del det.forward_teacher_ctx
+
+
+ALDI_YOLO = "configs/cityscapes/ALDI-Yolo-Cityscapes.yaml"
+
+
+def yolo_cfg(get_cfg, **overrides):
+    """The ALDI-Yolo recipe (``configs/cityscapes/ALDI-Yolo-Cityscapes.yaml``)
+    cut to the sizes of ``tests/test_yolo.py``: yolov5n multiples (0.33,
+    0.25), 3 classes, canvas 128, MAX_GT 8, 10 detections per image, in
+    float32, without warmup; ``overrides``: {"A.B": value}."""
+    cfg = get_cfg()
+    cfg.merge_from_file(ALDI_YOLO)
+    cfg.MODEL.YAML = "yolov5://yolov5n.yaml"
+    cfg.MODEL.YOLO.NUM_CLASSES = 3
+    cfg.TPU.CANVAS = (128, 128)
+    cfg.TPU.MAX_GT = 8
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TEST.DETECTIONS_PER_IMAGE = 10
+    cfg.SOLVER.WARMUP_ITERS = 0
+    for key, value in overrides.items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node[p]
+        node[leaf] = value
+    return cfg
+
+
+def yolo_variables(jdet, seed=0):
+    """The JAX YOLO detector's {"params", "batch_stats"} filled from a numpy
+    seed: kernels with std 1/sqrt(fan_in) (the heads' 0.5), BatchNorm
+    scales and running variances in 0.5..1.5, small biases and running
+    means, so that eval mode normalizes by statistics away from the
+    identity."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(jdet.init_variables, jax.random.PRNGKey(0))
+
+    def fill(path, s):
+        names = [getattr(p, "key", str(p)) for p in path]
+        leaf = names[-1]
+        if leaf == "kernel":
+            gain = 0.5 if names[-2].startswith("detect") else 1.0
+            std = gain / np.sqrt(np.prod(s.shape[:-1]))
+            return (rng.standard_normal(s.shape) * std).astype(np.float32)
+        if leaf in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (rng.standard_normal(s.shape) * 0.05).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
