@@ -29,7 +29,18 @@ state dict for ``models.rcnn.RCNN``, whose names follow detectron2:
 - YOLOv5 (``b{i}``, ``n{i}``, ``detect{i}``): the JAX path joined with
   dots, its BatchNorm ``scale`` -> ``weight`` and the ``batch_stats``
   collection's ``mean``/``var`` -> the ``running_mean``/``running_var``
-  buffers.
+  buffers;
+- Deformable DETR (a tree with ``level_embed``): the official layout
+  (``models/detr.py``): the R50 under torchvision's names in
+  ``backbone.0.body``, ``input_proj{i}[_norm]`` -> ``input_proj.{i}.
+  {0,1}``, ``enc{i}``/``dec{i}`` -> ``transformer.{encoder,decoder}.
+  layers.{i}`` (``ffn/linear{1,2}`` -> ``linear{1,2}``, ``ffn/norm`` ->
+  ``norm2`` in the encoder and ``norm3`` in the decoder), flax's attention
+  ``query``/``key``/``value`` kernels [C, heads, hd] and biases packed into
+  ``in_proj_weight`` [3C, C] and ``in_proj_bias``, ``out`` [heads, hd, C]
+  -> ``out_proj``; the heads ``class_embed``/``bbox_embed/l{j}`` (shared:
+  index 0; ``class_embed{i}`` under box refinement; ``_enc``: index
+  DEC_LAYERS), ``row_embed``/``col_embed`` -> ``backbone.1.*``.
 
 The same function converts a JAX ``TrainState``'s EMA teacher, given
 ``{"params": state.ema_params, "frozen": state.frozen}`` (the teacher
@@ -44,7 +55,11 @@ differently: the box head's ``fc1`` input from detectron2's channel-major
 (c, h, w) flattening to (h, w, c), and a ViT ``pos_embed`` stored as tokens
 [1, p*p (+1 class token), D] to the grid [1, p, p, D]; a ConvNeXt's names
 and layouts are the reference's; a YOLOv5 file carries ultralytics'
-``model.{idx}.*`` names (``yolo_reference_names``). The discriminators are
+``model.{idx}.*`` names (``yolo_reference_names``); an official
+Deformable-DETR file carries the port's names, its R50 also accepted under
+torchvision's bare ImageNet names (``conv1.weight``, ``layer1.0...``), and
+its shared heads' duplicates ``class_embed.{i}``/``bbox_embed.{i}`` beyond
+index 0 are left unused. The discriminators are
 not read from a reference file (``aldi_tpu/engine/checkpoint_convert.py:
 172-174`` skips them too): they keep their initial weights. Loading is
 non-strict, as detectron2's: missing, unused and shape-mismatched keys are
@@ -164,10 +179,102 @@ def _port_name(path) -> str:
     raise KeyError(f"no counterpart in the port for {'/'.join(path)}")
 
 
+_DETR_BODY = "backbone.0.body"
+
+
+def _detr_head(top: str, n_dec: int) -> str:
+    """``class_embed``/``bbox_embed`` (shared), ``...{i}`` or ``..._enc``
+    -> its index in the port's head list."""
+    for base in ("class_embed", "bbox_embed"):
+        if top.startswith(base):
+            suffix = top[len(base):]
+            idx = n_dec if suffix == "_enc" else int(suffix or 0)
+            return f"{base}.{idx}"
+    raise KeyError(top)
+
+
+def _detr_name(path, n_dec: int) -> str:
+    top, leaf = path[0], _LEAF.get(path[-1], path[-1])
+    if top == "backbone":  # stem_conv1[_norm] or res{s}_block{b}/conv{i}...
+        mod = path[1]
+        if mod.startswith("stem_conv1"):
+            return (f"{_DETR_BODY}.bn1.{leaf}" if mod.endswith("_norm")
+                    else f"{_DETR_BODY}.conv1.weight")
+        stage, block = mod.split("_block")
+        base = f"{_DETR_BODY}.layer{int(stage[len('res'):]) - 1}.{block}"
+        conv = path[2]
+        if conv.startswith("shortcut"):
+            slot = "1" if conv.endswith("_norm") else "0"
+            return f"{base}.downsample.{slot}.{leaf}"
+        if conv.endswith("_norm"):
+            return f"{base}.bn{conv[len('conv')]}.{leaf}"
+        return f"{base}.{conv}.weight"
+    if top.startswith("input_proj"):
+        i = top[len("input_proj")]
+        return f"input_proj.{i}.{int(top.endswith('_norm'))}.{leaf}"
+    if top == "level_embed":
+        return "transformer.level_embed"
+    if top in ("row_embed", "col_embed"):
+        return f"backbone.1.{top}.weight"
+    if top == "query_embed":
+        return "query_embed.weight"
+    if top in ("reference_points", "enc_output", "enc_output_norm",
+               "pos_trans", "pos_trans_norm"):
+        return f"transformer.{top}.{leaf}"
+    if top.startswith("class_embed"):
+        return f"{_detr_head(top, n_dec)}.{leaf}"
+    if top.startswith("bbox_embed"):
+        return f"{_detr_head(top, n_dec)}.layers.{path[1][1:]}.{leaf}"
+    kind = {"enc": "encoder", "dec": "decoder"}[top[:3]]
+    base = f"transformer.{kind}.layers.{top[3:]}"
+    if path[1] == "ffn":
+        sub = path[2]
+        if sub == "norm":
+            sub = "norm2" if kind == "encoder" else "norm3"
+        return f"{base}.{sub}.{leaf}"
+    if path[1] == "self_attn" and kind == "decoder":
+        return f"{base}.self_attn.{path[2]}.{path[-1]}"  # packed below
+    return f"{base}.{'.'.join(path[1:-1])}.{leaf}"
+
+
+def _pack_attention(out: dict) -> None:
+    """flax attention projections (``...self_attn.{query,key,value,out}.
+    {kernel,bias}``, as ``_detr_name`` leaves them) -> ``in_proj_weight``,
+    ``in_proj_bias`` and ``out_proj``, in place."""
+    for name in [k for k in out if k.endswith("self_attn.query.kernel")]:
+        base = name[:-len("query.kernel")]
+        qkv = [out.pop(f"{base}{p}.kernel") for p in ("query", "key",
+                                                      "value")]
+        bias = [out.pop(f"{base}{p}.bias") for p in ("query", "key",
+                                                     "value")]
+        out[f"{base}in_proj_weight"] = torch.cat(
+            [k.reshape(k.shape[0], -1).T for k in qkv]).contiguous()
+        out[f"{base}in_proj_bias"] = torch.cat([b.reshape(-1) for b in bias])
+        k = out.pop(f"{base}out.kernel")
+        out[f"{base}out_proj.weight"] = k.reshape(-1, k.shape[-1]).T \
+            .contiguous()
+        out[f"{base}out_proj.bias"] = out.pop(f"{base}out.bias")
+
+
 def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """``{"params": tree, "frozen": tree}`` (the R-CNN families) or
-    ``{"params": tree, "batch_stats": tree}`` (YOLOv5) -> ``{name: float32
-    tensor}``."""
+    """``{"params": tree, "frozen": tree}`` (the R-CNN families and
+    Deformable DETR) or ``{"params": tree, "batch_stats": tree}`` (YOLOv5)
+    -> ``{name: float32 tensor}``."""
+    params = variables.get("params", {})
+    if "level_embed" in params:
+        n_dec = sum(k.startswith("dec") and k[3:].isdigit() for k in params)
+        out = {}
+        for coll in ("params", "frozen"):
+            for path, arr in _flatten(variables.get(coll, {})):
+                a = np.asarray(arr, dtype=np.float32)
+                if path[-1] == "kernel" and a.ndim == 4:
+                    a = a.transpose(3, 2, 0, 1)
+                elif path[-1] == "kernel" and a.ndim == 2:
+                    a = a.T
+                out[_detr_name(path, n_dec)] = torch.from_numpy(
+                    np.ascontiguousarray(a))
+        _pack_attention(out)
+        return out
     out = {}
     for coll in ("params", "frozen", "batch_stats"):
         for path, arr in _flatten(variables.get(coll, {})):
@@ -271,6 +378,9 @@ def reference_state_dict_to_port(sd: dict, target: Dict[str, torch.Tensor],
         if convert_layouts and _is_yolo(name.split(".", 1)[0]):
             key = next((k for k in yolo_reference_names(name) if k in sd),
                        name)
+        elif (convert_layouts and name.startswith(_DETR_BODY + ".")
+              and name not in sd):
+            key = name[len(_DETR_BODY) + 1:]  # torchvision's ImageNet names
         if key not in sd:
             missing.append(name)
             out[name] = want

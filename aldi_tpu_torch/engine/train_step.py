@@ -1,13 +1,16 @@
 """The ALDI++ DAOD training step.
 
 Port of ``aldi_tpu/engine/train_step.py:100-393`` for the R-CNN family
-(ResNet-FPN, ConvNeXt-FPN and ViTDet backbones) and YOLOv5, with
-the same stream logic: the EMA update before the step; the teacher pass
-(pseudo-labels and distill targets, no gradient); strong views of the
-labeled and unlabeled batches derived on the device; the student's streams
-(``labeled_weak``, ``labeled_strong``, with DOMAIN_ADAPT.ALIGN the
-target_weak stream of alignment losses on the unlabeled weak images, and
-the distill stream on the pseudo-labels), each weighted ``n_s / n_eff`` as
+(ResNet-FPN, ConvNeXt-FPN and ViTDet backbones), YOLOv5 and Deformable
+DETR, with the same stream logic: the EMA update before the step; the
+teacher pass (pseudo-labels and distill targets, no gradient); strong
+views of the labeled and unlabeled batches derived on the device; the
+student's streams (``labeled_weak``, ``labeled_strong``, with
+DOMAIN_ADAPT.ALIGN the target_weak stream of alignment losses on the
+unlabeled weak images, and the distill stream on the pseudo-labels: its
+standard losses gated by the HARD_* flags, or, for a detector whose
+``gate_hard`` is False (DETR's HardDistiller), passed through as they
+are, ``:264-269``), each weighted ``n_s / n_eff`` as
 the reference's gradient accumulation weighs them (``n_eff`` counts the
 unlabeled batch once); one ``backward()`` per stream
 (``SOLVER.BACKWARD_AT_END: false``) or one for their sum (true); the
@@ -132,14 +135,32 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
     and, with instance alignment, the ROI sampler's draws over the
     proposals and one empty gt slot. With ``TPU.GRAD_ACCUM = k > 1`` each
     student stream's entry is a list of k chunks' draws. YOLO has no
-    sampler and no drop path: its step draws only the strong views."""
+    sampler and no drop path: its step draws only the strong views.
+    Deformable DETR samples nothing either; each of its student streams
+    (per chunk) gets one int64 seed for its dropout masks, ``{"dropout":
+    seed}``, drawn first."""
     cfg = detector.cfg
     s = stream_flags(cfg)
     accum = grad_accum(cfg)
     canvas = resolve_canvas(cfg)
     aug = cfg.AUG
+
+    def student(b, make):
+        if accum == 1:
+            return make(b)
+        return [make(b // accum) for _ in range(accum)]
+
     if not _has_samplers(cfg):
         out = {}
+        if cfg.MODEL.META_ARCHITECTURE == "DeformableDETR":
+            def seed(_):
+                return {"dropout": int(torch.randint(
+                    0, 2**62, (), generator=gen, device=gen.device))}
+
+            for name, on in (("weak", s.weak), ("strong", s.strong),
+                             ("distill", s.distill)):
+                if on:
+                    out[name] = student(0, seed)
         if s.strong:
             out["aug_labeled"] = strong_aug_draws(
                 gen, n_labeled, canvas, aug.LABELED_INCLUDE_RANDOM_ERASING,
@@ -184,16 +205,11 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
             out["roi"] = sample_proposals_draws(gen, (b,), n)
         return drop(out, b)
 
-    def student(b, make=chunk):
-        if accum == 1:
-            return make(b)
-        return [make(b // accum) for _ in range(accum)]
-
     out = {}
     if s.weak:
-        out["weak"] = student(n_labeled)
+        out["weak"] = student(n_labeled, chunk)
     if s.strong:
-        out["strong"] = student(n_labeled)
+        out["strong"] = student(n_labeled, chunk)
         out["aug_labeled"] = strong_aug_draws(
             gen, n_labeled, canvas, aug.LABELED_INCLUDE_RANDOM_ERASING,
             aug.LABELED_MIC_AUG, aug.MIC_BLOCK_SIZE)
@@ -202,7 +218,7 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
     if s.distill:
         if s.teacher_anchors:
             out["teacher"] = anchors(n_unlabeled)
-        out["distill"] = student(n_unlabeled)
+        out["distill"] = student(n_unlabeled, chunk)
         out["aug_unlabeled"] = strong_aug_draws(
             gen, n_unlabeled, canvas, aug.UNLABELED_INCLUDE_RANDOM_ERASING,
             aug.UNLABELED_MIC_AUG, aug.MIC_BLOCK_SIZE)
@@ -210,17 +226,19 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
 
 
 def _has_samplers(cfg) -> bool:
-    """The R-CNN families sample anchors and ROIs; YOLO samples nothing."""
+    """The R-CNN families sample anchors and ROIs; YOLO and DETR sample
+    nothing."""
     return cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN"
 
 
 def to_device(tree, device):
-    """A nested dict (or list) of tensors moved to ``device``."""
+    """A nested dict (or list) of tensors moved to ``device``; other leaves
+    (DETR's dropout seeds) as they are."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def _chunk(tree, i: int, k: int):
@@ -330,7 +348,10 @@ def make_train_step(cfg, detector):
             std, s_aux = detector.forward_train(
                 student, m["us"], m["uw"]["sizes"], m["pseudo"],
                 d.get("distill"))
-            losses = gate_hard_losses(std, cfg)
+            if getattr(detector, "gate_hard", True):
+                losses = gate_hard_losses(std, cfg)
+            else:  # HardDistiller: the standard losses pass through
+                losses = dict(std)
             if s.soft:
                 losses.update(detector.distill_losses(teacher, m["ctx"],
                                                       s_aux))
@@ -359,6 +380,8 @@ def make_train_step(cfg, detector):
                 losses, t_c = {}, 0.0
                 for name in active:
                     l_s = stream(name, m, d)
+                    if not l_s:  # DETR's alignment is a pass-through
+                        continue
                     t_s = total_of(l_s)
                     (t_s / accum).backward()
                     t_c = t_c + t_s.detach()

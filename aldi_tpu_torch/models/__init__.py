@@ -1,9 +1,11 @@
 """Detector builder of the port (``aldi_tpu/models/__init__.py``)."""
 
+from .detr import DeformableDETR, DETRDetector  # noqa: F401
 from .rcnn import RCNN, RCNNDetector  # noqa: F401
 from .yolo import YOLOv5, YoloDetector  # noqa: F401
 
-DETECTORS = {"GeneralizedRCNN": RCNNDetector, "Yolo": YoloDetector}
+DETECTORS = {"GeneralizedRCNN": RCNNDetector, "Yolo": YoloDetector,
+             "DeformableDETR": DETRDetector}
 
 
 def build_detector(cfg, device=None, seed=0):
@@ -14,9 +16,9 @@ def build_detector(cfg, device=None, seed=0):
     if name not in DETECTORS:
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE={name} is not ported yet: ROADMAP.md "
-            "lists it under 'Slices still to port'")
+            "lists it under 'Modules still to port'")
     if cfg.MODEL.LOAD_PROPOSALS:
         raise NotImplementedError(
             "MODEL.LOAD_PROPOSALS is not ported yet: ROADMAP.md lists it "
-            "under 'Slices still to port'")
+            "under 'Modules still to port'")
     return DETECTORS[name](cfg, device, seed)

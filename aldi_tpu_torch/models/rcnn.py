@@ -46,8 +46,8 @@ VIT_BACKBONES = ("build_vitdet_b_backbone", "build_vitdet_l_backbone")
 CONVNEXT_BACKBONE = "build_convnext_fpn_backbone"
 ALIGN_LEVELS = {"p2": 0, "p3": 1, "p4": 2, "p5": 3, "p6": 4}
 
-_NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Slices still "
-               "to port'")
+_NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Modules "
+               "still to port'")
 
 
 class GradReverse(torch.autograd.Function):

@@ -30,6 +30,35 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def pairwise_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU matrix between [..., N, 4] and [..., M, 4] ->
+    [..., N, M] (the DETR matcher and losses)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    zero = torch.zeros_like(inter)
+    iou = torch.where(union > 0, inter / union, zero)
+    lt_e = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb_e = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh_e = (rb_e - lt_e).clamp(min=0)
+    area_e = wh_e[..., 0] * wh_e[..., 1]
+    return iou - torch.where(area_e > 0, (area_e - union) / area_e, zero)
+
+
+def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], -1)
+
+
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
 def clip_boxes(boxes: torch.Tensor, hw) -> torch.Tensor:
     """Clip [..., 4] boxes to [0, w] x [0, h]. ``hw`` is (h, w), scalars or
     tensors broadcastable against the leading dims."""

@@ -1,4 +1,4 @@
-"""The port's six kernels as ``torch.library`` custom ops, namespace
+"""The port's seven kernels as ``torch.library`` custom ops, namespace
 ``aldi_tpu_torch``.
 
 Each op has two implementations, chosen by PyTorch's dispatcher from the
@@ -25,6 +25,8 @@ the rel-pos attention's forward get their backward through
   ``csrc/flash_attn_fwd.cu``
 - ``flash_attn_bwd`` (K3b): ``flash_attn.flash_attn_plain_backward`` /
   ``csrc/flash_attn_bwd.cu``
+- ``lapjv`` (K4, the DETR criterion's assignment solver; no gradient):
+  ``lapjv.lapjv_plain`` / ``csrc/lapjv.cu``
 
 ``roi_align_bwd`` takes the level shapes flattened (``[H_0, W_0, H_1,
 ...]``). Importing this module registers the ops; the kernels are built at
@@ -36,8 +38,9 @@ from typing import List, Tuple
 import torch
 from torch import Tensor
 
-from . import flash_attn, flash_attn_kernel, match_kernel, roi_align
-from . import roi_align_kernel
+from . import flash_attn, flash_attn_kernel, lapjv_kernel, match_kernel
+from . import roi_align, roi_align_kernel
+from .lapjv import lapjv_plain
 
 _NS = "aldi_tpu_torch"
 
@@ -226,3 +229,23 @@ def _attn_backward(ctx, dout, _):
 
 
 flash_attn_fwd.register_autograd(_attn_backward, setup_context=_attn_setup)
+
+
+# ------------------------------------------------- K4: assignment solver
+@torch.library.custom_op(f"{_NS}::lapjv", mutates_args=(),
+                         device_types="cpu")
+def lapjv(cost: Tensor, n_rows: Tensor) -> Tuple[Tensor, Tensor]:
+    """cost [P, n, m] f32, n_rows [P] int32 -> (col4row [P, n] int32,
+    settles [P] int32)."""
+    return lapjv_plain(cost, n_rows)
+
+
+@lapjv.register_kernel("cuda")
+def _(cost, n_rows):
+    return lapjv_kernel.lapjv(cost, n_rows)
+
+
+@lapjv.register_fake
+def _(cost, n_rows):
+    return (cost.new_empty(cost.shape[:2], dtype=torch.int32),
+            cost.new_empty(cost.shape[:1], dtype=torch.int32))

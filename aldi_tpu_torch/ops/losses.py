@@ -1,11 +1,13 @@
-"""Loss primitives of the R-CNN family.
+"""Loss primitives of the R-CNN, YOLO and DETR families.
 
-Port of ``aldi_tpu/ops/losses.py`` (``sigmoid_focal`` and ``giou_loss`` come
-with the DETR slice). All take explicit masks instead of ragged filtering
-and return per-element or per-row values; callers reduce and normalize.
+Port of ``aldi_tpu/ops/losses.py``. All take explicit masks instead of
+ragged filtering and return per-element or per-row values; callers reduce
+and normalize.
 """
 
 import torch
+
+from .boxes import box_area
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -42,6 +44,38 @@ def kl_div_log_targets(student_log_probs: torch.Tensor,
     """KL(teacher || student) with log-space targets, summed per row."""
     t = torch.exp(teacher_log_probs)
     return (t * (teacher_log_probs - student_log_probs)).sum(dim=-1)
+
+
+def sigmoid_focal(logits: torch.Tensor, targets: torch.Tensor,
+                  alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Elementwise sigmoid focal loss (RetinaNet/DETR form)."""
+    p = torch.sigmoid(logits)
+    ce = bce_with_logits(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+        loss = alpha_t * loss
+    return loss
+
+
+def giou_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise 1 - GIoU for paired [..., 4] xyxy boxes."""
+    area_p = box_area(pred)
+    area_t = box_area(target)
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:], target[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area_p + area_t - inter
+    zero = torch.zeros_like(inter)
+    iou = torch.where(union > 0, inter / union, zero)
+    lt_e = torch.minimum(pred[..., :2], target[..., :2])
+    rb_e = torch.maximum(pred[..., 2:], target[..., 2:])
+    wh_e = (rb_e - lt_e).clamp(min=0)
+    area_e = wh_e[..., 0] * wh_e[..., 1]
+    return 1.0 - (iou - torch.where(area_e > 0, (area_e - union) / area_e,
+                                    zero))
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor,

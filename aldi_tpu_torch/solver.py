@@ -14,7 +14,12 @@ Port of ``aldi_tpu/solver.py`` for SGD and ADAMW.
   ``:43-61``). optax's update is ``-lr * mult * (adam + wd * p)``;
   ``torch.optim.AdamW`` with one parameter group per (multiplier, decay)
   pair, ``lr = schedule * mult`` and ``weight_decay`` wd or 0, makes the
-  same one (``p * (1 - lr wd)``, then ``-lr * adam``).
+  same one (``p * (1 - lr wd)``, then ``-lr * adam``). Deformable DETR's
+  multipliers (``:184-202``): SOLVER.BACKBONE_LR_MULTIPLIER for the R50
+  (the JAX module's ``backbone``, the port's ``backbone.0``), else
+  SOLVER.LR_LINEAR_PROJ_MULTIPLIER for a parameter whose path holds a name
+  of SOLVER.LR_LINEAR_PROJ_NAMES (``reference_points``,
+  ``sampling_offsets``), else 1.
 
 The mask is the set of parameters with ``requires_grad``
 (``ResNet(freeze_at=...)`` clears it on the frozen stages). ``set_lr``
@@ -83,6 +88,18 @@ def vit_lr_decay_multiplier(name: str, num_layers: int = 12,
     return rate ** (num_layers + 1 - layer_id)
 
 
+def detr_lr_multiplier(name: str, backbone_mult: float, proj_mult: float,
+                       proj_names) -> float:
+    """Deformable DETR's multiplier for one parameter of the port: the R50
+    (``backbone.0.*``) first, then any dotted component of the name in
+    ``proj_names``."""
+    if name.startswith("backbone.0."):
+        return backbone_mult
+    if any(part in proj_names for part in name.split(".")):
+        return proj_mult
+    return 1.0
+
+
 def build_optimizer(cfg, module: torch.nn.Module):
     """cfg + model -> ``torch.optim.SGD`` or ``AdamW`` over the trainable
     parameters (``requires_grad``), with the learning rate of step 0. Each
@@ -97,15 +114,21 @@ def build_optimizer(cfg, module: torch.nn.Module):
             nesterov=cfg.SOLVER.NESTEROV)
     if name != "ADAMW":
         raise ValueError(f"Unsupported optimizer {name}")
-    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
-        raise NotImplementedError(
-            "ADAMW's DETR multipliers are not ported yet: ROADMAP.md, "
-            "Deformable DETR slice")
-    decay = cfg.MODEL.BACKBONE.NAME == "build_vitdet_b_backbone"
+    if cfg.MODEL.META_ARCHITECTURE == "DeformableDETR":
+        def multiplier(n):
+            return detr_lr_multiplier(
+                n, cfg.SOLVER.BACKBONE_LR_MULTIPLIER,
+                cfg.SOLVER.LR_LINEAR_PROJ_MULTIPLIER,
+                cfg.SOLVER.LR_LINEAR_PROJ_NAMES)
+    elif cfg.MODEL.BACKBONE.NAME == "build_vitdet_b_backbone":
+        multiplier = vit_lr_decay_multiplier
+    else:
+        def multiplier(n):
+            return 1.0
     wd = cfg.SOLVER.WEIGHT_DECAY
     groups = {}
     for n, p in named:
-        mult = vit_lr_decay_multiplier(n) if decay else 1.0
+        mult = multiplier(n)
         key = (mult, 0.0 if n.split(".")[-1] == "pos_embed" else wd)
         groups.setdefault(key, []).append(p)
     return torch.optim.AdamW(

@@ -126,8 +126,31 @@ failure exits non-zero:
    or that it does not fit); the artifact as in phase 4 (bitwise equal to
    eager, no kernel op in the graph); and a tiny float32 YOLOv5-n DAOD step
    on the card against the same step on the CPU.
-8. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
-   line and, last, ``{"ok": true, "device": {...}}``.
+8. Deformable DETR phase, ``configs/cityscapes/ALDI-Best-DETR-Cityscapes
+   .yaml`` (R50, 4 levels, 6 + 6 layers, d_model 256, 8 heads, 4 points,
+   300 queries, 8 classes, 800x1344, float32, ``seeded_weights``), whose
+   only kernel is K4, the Hungarian criterion's assignment solver: first,
+   in the kernel phase, K4 on a synthetic set of 96 problems of [100, 300]
+   with ties (duplicated rows, columns clipped to 1e4), exactly equal to
+   ``lapjv_plain`` and cost-equal to scipy's ``linear_sum_assignment``.
+   Then serving (1 warm-up + 3 timed requests of 8 images, a request by
+   stage, a traced request with MSDA's share of the busy time); the
+   ALDI-Best-DETR DAOD step at 4 + 4 (TEACHER.THRESHOLD 0, so every
+   unlabeled image's 100 detections are pseudo-labels; 1 warm-up whose K4
+   launches are recorded + 3 timed steps, each checked: finite losses, a
+   non-zero ``loss_ce_distill``, the teacher's ``query_embed`` copied and
+   its other parameters the EMA, every trainable parameter moved and the
+   frozen stem and res2 not, K4 twice per step and no other kernel; a step
+   by stage, a traced step); one step at the published 16 + 16 (its peak,
+   or the smallest TPU.GRAD_ACCUM that fits); K4 held against its plain
+   version, exactly, and scipy at each of the warm-up step's launches (their
+   real costs), with its time, bound, settles, the plain version's and
+   scipy's times; the artifact as in phase 4 (no kernel op in the graph);
+   and a tiny float32 DETR, the shipped variant and WITH_BOX_REFINE +
+   TWO_STAGE, on the card against the CPU (a request and one DAOD step).
+9. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
+   line (the six kernels and K4) and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
 from the host clock around work that ends in ``torch.cuda.synchronize()``.
@@ -154,6 +177,11 @@ YOLO_ALDI = os.path.join(ROOT, "configs", "cityscapes",
 YOLO_ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
               "DOMAIN_ADAPT.ALIGN.IMG_DA_LAYER": "p5"}
 YOLO_PUBLISHED_CHUNK = 12  # SOLVER.IMS_PER_GPU of configs/Base-Yolo.yaml
+DETR_ALDI = os.path.join(ROOT, "configs", "cityscapes",
+                         "ALDI-Best-DETR-Cityscapes.yaml")
+DETR_PUBLISHED_CHUNK = 16  # SOLVER.IMS_PER_GPU of configs/Base-DETR.yaml
+DETR_TWO_STAGE = {"MODEL.DEFORMABLE_DETR.WITH_BOX_REFINE": True,
+                  "MODEL.DEFORMABLE_DETR.TWO_STAGE": True}
 # the aligned flagship: both discriminators on, the rest of
 # DOMAIN_ADAPT.ALIGN at its defaults
 ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
@@ -779,8 +807,8 @@ def conditioned_weights(state_dict, seed):
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    gains = {"stem.conv1": 1 / 64, "anchor_deltas": 0.1, "bbox_pred": 0.1,
-             "cls_score": 3.0}
+    gains = {"stem.conv1": 1 / 64, "body.conv1": 1 / 64,
+             "anchor_deltas": 0.1, "bbox_pred": 0.1, "cls_score": 3.0}
     out = {}
     for name, t in state_dict.items():
         mod, leaf = name.rsplit(".", 1)
@@ -788,7 +816,7 @@ def conditioned_weights(state_dict, seed):
             g = next((v for k, v in gains.items() if mod.endswith(k)), 1.0)
             x = torch.randn(t.shape, generator=gen) * (
                 g / math.sqrt(t[0].numel()))
-        elif leaf == "weight" and mod.endswith("conv3.norm"):
+        elif leaf == "weight" and mod.endswith(("conv3.norm", "bn3")):
             x = torch.rand(t.shape, generator=gen) * 0.2 + 0.1
         elif leaf in ("weight", "running_var"):
             x = torch.rand(t.shape, generator=gen) + 0.5
@@ -1693,7 +1721,7 @@ def artifact_phase(card, config, kernels, per_request):
         latencies.append((time.perf_counter() - t0) * 1e3)
         n_det += check_detections(
             out, sizes, det.num_classes, cfg.TEST.DETECTIONS_PER_IMAGE,
-            nonempty=cfg.MODEL.META_ARCHITECTURE != "Yolo")
+            nonempty=cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN")
         outs.append(out)
     launches = {k.name: k.launches for k in kernels}
     want = {k.name: n * TIMED_REQUESTS for k, n in zip(
@@ -2876,6 +2904,604 @@ def tiny_yolo_train_reference_check():
         fail("tiny YOLO DAOD step: card and CPU disagree")
 
 
+def tied_lapjv_problems(gen, p, n, m):
+    """P assignment problems of [n, m] on the card with deliberate ties:
+    costs on a grid of quarters in -8..8, about a third of the rows a copy
+    of the row before, a fifth of the columns clipped to 1e4 in every row;
+    n_rows spread over 0..n, the first four problems full (n rows)."""
+    import torch
+
+    cost = torch.randint(-32, 33, (p, n, m), generator=gen,
+                         device="cuda").float() / 4
+    dup = torch.rand((p, n), generator=gen, device="cuda") < 0.3
+    for r in range(1, n):
+        cost[:, r] = torch.where(dup[:, r, None], cost[:, r - 1], cost[:, r])
+    clipped = torch.rand((p, 1, m), generator=gen, device="cuda") < 0.2
+    cost = torch.where(clipped, torch.full((), 1e4, device="cuda"), cost)
+    n_rows = torch.randint(0, n + 1, (p,), generator=gen, device="cuda")
+    n_rows[:4] = n
+    return cost.contiguous(), n_rows.to(torch.int32)
+
+
+def lapjv_bound(cost, settles):
+    """Least time (ms) the card could take for K4 on ``cost`` [P, n, m],
+    and what sets it: bytes (the costs and n_rows read once, col4row and
+    the settles written once) against operations (per settle of this run,
+    the reduced cost of each column, 3 adds, and its comparisons, 2, in
+    float32)."""
+    p, n, m = cost.shape
+    n_bytes = cost.numel() * 4 + p * 4 + p * n * 4 + p * 4
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = int(settles.sum()) * m * 5 / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_lapjv(label, cost, n_rows, kernel_iters=20, plain_iters=1):
+    """K4 (its wrapper) against ``lapjv_plain`` on these problems: col4row
+    and the settles exactly equal; each problem's assignment a permutation
+    whose cost (summed in float64) equals
+    ``scipy.optimize.linear_sum_assignment``'s to float32 rounding (1e-6
+    of the summed magnitude, plus 1e-3). Times: the kernel's wrapper, the
+    plain version on the card, and scipy on the host with the copy of the
+    costs included (the yardstick; no PyTorch call solves an assignment,
+    so ``library_ms`` stays null). Returns the kernels line's numbers."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from aldi_tpu_torch.ops.lapjv import lapjv_plain
+    from aldi_tpu_torch.ops.lapjv_kernel import lapjv
+
+    got, settles = lapjv(cost, n_rows)
+    want, want_settles = lapjv_plain(cost, n_rows)
+    torch.cuda.synchronize()
+    unequal = int((got != want).sum())
+    if unequal or not torch.equal(settles, want_settles):
+        fail(f"lapjv ({label}): K4 differs from lapjv_plain in {unequal} "
+             f"entries of col4row; settles equal: "
+             f"{torch.equal(settles, want_settles)}")
+
+    def scipy_solve():
+        c = cost.cpu().numpy()
+        nr = n_rows.cpu().tolist()
+        return [linear_sum_assignment(c[i, :k]) if k else None
+                for i, k in enumerate(nr)]
+
+    t0 = time.perf_counter()
+    ref = scipy_solve()
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    c64 = cost.double().cpu().numpy()
+    col = got.cpu().numpy()
+    worst = 0.0
+    for i, r in enumerate(ref):
+        if r is None:
+            continue
+        k = len(r[0])
+        cols = col[i, :k]
+        if (cols < 0).any() or len(set(cols.tolist())) != k:
+            fail(f"lapjv ({label}): problem {i} is not a permutation")
+        mine = c64[i, np.arange(k), cols].sum()
+        best = c64[i, r[0], r[1]].sum()
+        tol = 1e-6 * np.abs(c64[i, r[0], r[1]]).sum() + 1e-3
+        if abs(mine - best) > tol:
+            fail(f"lapjv ({label}): problem {i} costs {mine}, scipy's "
+                 f"{best} (tol {tol:.3g})")
+        worst = max(worst, abs(mine - best))
+    ms = cuda_ms(lambda: lapjv(cost, n_rows), kernel_iters)
+    plain_ms = cuda_ms(lambda: lapjv_plain(cost, n_rows), plain_iters,
+                       warmup=0)
+    bound_ms, bound_by = lapjv_bound(cost, settles)
+    st = settles.float()
+    p, n, m = cost.shape
+    print(f"[kernel] lapjv (K4), {label}: {p} problems of [{n}, {m}], rows "
+          f"solved {int(n_rows.sum())} (max {int(n_rows.max())}); col4row "
+          f"and settles exactly equal to lapjv_plain; cost equal to scipy's "
+          f"(worst |difference| {worst:.3g}); settles per problem mean "
+          f"{float(st.mean()):.1f}, max {int(st.max())}; kernel {ms:.4f} ms "
+          f"(the wrapper's whole call), plain {plain_ms:.2f} ms, scipy on "
+          f"the host with the copy {scipy_ms:.2f} ms, bound {bound_ms:.5f} "
+          f"ms ({bound_by}), {bound_ms / ms:.5f} of the bound", flush=True)
+    return dict(max_abs_err=float(unequal), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, scipy_ms=scipy_ms,
+                settles_mean=float(st.mean()), settles_max=int(st.max()),
+                problems=[p, n, m])
+
+
+def detr_config(overrides=None):
+    """The ALDI-Best-DETR recipe (R50, 4 levels, 6 + 6 layers, d_model 256,
+    8 heads, 4 points, 300 queries, 8 classes, 800x1344, float32) without
+    its weight file (not in the repository), with ``overrides``."""
+    return config_of(DETR_ALDI, {"MODEL.WEIGHTS": "", **(overrides or {})})
+
+
+def detr_tokens(det):
+    """The encoder's tokens per image on the detector's canvas."""
+    h, w = det.canvas
+    hws = [(math.ceil(h / s), math.ceil(w / s)) for s in (8, 16, 32)]
+    hws.append(((hws[-1][0] + 1) // 2, (hws[-1][1] + 1) // 2))
+    return sum(a * b for a, b in hws)
+
+
+def msda_share(per_kernel, busy):
+    """(ms, share of the busy time) of the multi-scale deformable
+    attention's sampling kernels (``grid_sampler_2d`` forward and backward)
+    in a trace."""
+    ms = sum(v for k, (v, _) in per_kernel.items() if "grid_sampler" in k)
+    return ms, ms / busy if busy else 0.0
+
+
+def staged_detr_request(det, images, sizes):
+    """One DETR request with a synchronize after each stage: ms per stage.
+    The module's stages are cumulative runs (``stage="backbone"``, then
+    ``"encoder"``, then the whole): each stage's time is the difference;
+    the post-processing runs on the whole run's outputs."""
+    import torch
+
+    runs = {}
+    with torch.inference_mode():
+        for stage in ("backbone", "encoder", "full"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = det._fwd(None, images, sizes, False, stage=stage)
+            torch.cuda.synchronize()
+            runs[stage] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        det.detections(out, sizes)
+        torch.cuda.synchronize()
+        post = (time.perf_counter() - t0) * 1e3
+    return {"R50 + input projections + flatten": runs["backbone"],
+            "encoder (6 layers, MSDA)": runs["encoder"] - runs["backbone"],
+            "decoder + heads (6 layers)": runs["full"] - runs["encoder"],
+            "sigmoid + top-k + boxes": post}
+
+
+def detr_serving_phase(card, kernels):
+    """Deformable DETR of ``configs/cityscapes/ALDI-Best-DETR-Cityscapes
+    .yaml`` through ``build_detector`` and ``make_serving_fn`` with
+    ``seeded_weights``: one warm-up and 3 timed requests of 8 images of
+    800x1344 in float32, checked; a request by stage and a traced one
+    (device busy and idle share, top kernels, MSDA's share). Returns the
+    seven kernels' launches in the timed requests (all 0: K4 is
+    training-only)."""
+    import torch
+
+    from aldi_tpu_torch.engine.export import make_serving_fn
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = detr_config()
+    name = model_name(cfg)
+    t0 = time.perf_counter()
+    det = build_detector(cfg)
+    fn = make_serving_fn(det, seeded_weights(det, seed=0))
+    torch.cuda.synchronize()
+    print(f"[serving] {name}, {det.num_classes} classes, canvas {det.canvas}, "
+          f"{str(det.dtype).split('.')[-1]}, "
+          f"{sum(p.numel() for p in det.module.parameters())} parameters; "
+          f"{detr_tokens(det)} encoder tokens per image; built and seeded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [synthetic_request(gen, det.canvas)
+                for _ in range(1 + TIMED_REQUESTS)]
+    t0 = time.perf_counter()
+    fn(*requests[0])
+    torch.cuda.synchronize()
+    print(f"[serving] {name} warm-up request: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    latencies, n_det = [], 0
+    for images, sizes in requests[1:]:
+        t0 = time.perf_counter()
+        out = fn(images, sizes)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        n_det += check_detections(out, sizes, det.num_classes,
+                                  cfg.TEST.DETECTIONS_PER_IMAGE,
+                                  nonempty=False)
+    launches = no_launches(f"{name} serving", kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = median(latencies)
+    print(f"[serving] {name}, {TIMED_REQUESTS} requests of {BATCH} images: "
+          f"latency ms {fmt(latencies)} (median {med:.2f}), "
+          f"{BATCH * 1e3 / med:.2f} images/s at the median; {n_det} valid "
+          f"detections; launches {launches}; peak device memory {peak:.2f} "
+          f"GiB; card {card}", flush=True)
+    images, sizes = requests[-1]
+    stages = staged_detr_request(det, images, sizes)
+    print(f"[serving] {name}, one request by stage (ms, synchronized): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    traced = device_busy(lambda: fn(images, sizes))
+    if traced is None:
+        print(f"[serving] {name} device busy share: not measured (the "
+              "profiler saw no device events)")
+    else:
+        busy, top, per_kernel, _ = traced
+        ms, share = msda_share(per_kernel, busy)
+        print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
+              f"of the {med:.2f} ms median request, idle share "
+              f"{max(0.0, 1 - busy / med):.3f}; MSDA's grid_sampler_2d "
+              f"{ms:.2f} ms, {share:.3f} of busy; top kernels: "
+              + "; ".join(f"{k[:60]} {v:.2f} ms x{n}" for k, v, n in top),
+              flush=True)
+    del det, fn, requests, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+class LapjvLaunches:
+    """While active, records every K4 launch: copies of its costs and
+    n_rows."""
+
+    def __init__(self):
+        self.launches = []
+
+    def __enter__(self):
+        from aldi_tpu_torch.ops.lapjv_kernel import Lapjv
+
+        self.saved = Lapjv.__call__
+        call, rec = self.saved, self.launches
+
+        def record(kernel, cost, n_rows):
+            rec.append((cost.clone(), n_rows.clone()))
+            return call(kernel, cost, n_rows)
+
+        Lapjv.__call__ = record
+        return self
+
+    def __exit__(self, *exc):
+        from aldi_tpu_torch.ops.lapjv_kernel import Lapjv
+
+        Lapjv.__call__ = self.saved
+
+
+def teacher_blend_err(t_before, t_after, s_before, alpha):
+    """The worst |t' - (alpha t + (1 - alpha) s)| over the teacher's
+    parameters other than ``query_embed``, relative to each tensor's scale,
+    and whether the teacher's ``query_embed`` is the student's from before
+    the step (EMA.START_ITER passed: the EMA runs before the streams)."""
+    blended = [k for k in t_after if "query_embed" not in k]
+    err = ema_of(({k: t_before[k] for k in blended},
+                  {k: t_after[k] for k in blended}), s_before, alpha)
+    copied = all(bool((t_after[k] == s_before[k]).all())
+                 for k in t_after if "query_embed" in k)
+    return err, copied
+
+
+def detr_training_phase(card, kernels, overrides=None, n=TRAIN_IMAGES,
+                        timed=TIMED_STEPS, label=None):
+    """The ALDI-Best-DETR DAOD step (with ``overrides``) at full width and
+    depth through ``create_train_state``, ``draw_step`` and
+    ``make_train_step``: SOLVER.IMS_PER_BATCH cut from 48 to ``2 n`` (n
+    labeled + n unlabeled images of 800x1344), float32, seeded weights,
+    synthetic images and 5-30 gt boxes per labeled image, TEACHER.THRESHOLD
+    0. One warm-up step, whose K4 launches are recorded, and ``timed``
+    timed steps; checks at every timed step: finite losses, the distill
+    stream's ``loss_ce_distill`` present and non-zero (DETR's losses pass
+    ungated), 100 pseudo-labels per image, the teacher's ``query_embed``
+    the student's from before the step and its other parameters ``alpha t
+    + (1 - alpha) s``; after them every trainable parameter moved and the
+    frozen stem and res2 did not, and K4 launched twice per step (the
+    labeled_strong and the distill streams' criteria) and no other kernel.
+    Then a step by stage and a traced step (MSDA's share of the busy time).
+    Returns (launches in the timed steps, the median step ms, the peak GiB,
+    the warm-up step's K4 launches). With ``timed`` 0 only the warm-up step
+    runs, and an out-of-memory error returns None."""
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = detr_config(overrides)
+    name = label or model_name(cfg)
+    print(f"[train] {name} reductions: SOLVER.IMS_PER_BATCH "
+          f"{cfg.SOLVER.IMS_PER_BATCH} -> {2 * n} ({n} labeled + {n} "
+          f"unlabeled images per step); DOMAIN_ADAPT.TEACHER.THRESHOLD "
+          f"{cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD} -> 0 (the seeded weights' "
+          f"scores are below it: at 0 each unlabeled image's "
+          f"{cfg.TEST.DETECTIONS_PER_IMAGE} detections are its "
+          f"pseudo-labels, K4's worst case of {cfg.TPU.MAX_GT} rows); "
+          f"TPU.GRAD_ACCUM {cfg.TPU.GRAD_ACCUM}; widths, depth and canvas as "
+          f"published", flush=True)
+    cfg.SOLVER.IMS_PER_BATCH = 2 * n
+    cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD = 0.0
+    t0 = time.perf_counter()
+    det = build_detector(cfg)
+    state = create_train_state(cfg, det, seeded_weights(det, seed=0))
+    step = make_train_step(cfg, det)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_steps = 1 + timed + (2 if timed else 0)  # warm-up, timed, staged, traced
+    batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
+                                     det.num_classes, n)
+               for _ in range(n_steps)]
+    draws = [draw_step(gen, det, n, n) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    print(f"[train] {name}, {det.num_classes} classes, canvas {det.canvas}, "
+          f"{str(det.dtype).split('.')[-1]}, AdamW (R50 and sampling "
+          f"offsets / reference points x0.1), dropout "
+          f"{cfg.MODEL.DEFORMABLE_DETR.TRANSFORMER.DROPOUT}; state, batches "
+          f"and draws made in {time.perf_counter() - t0:.2f} s", flush=True)
+    start = params_of(state.student)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with LapjvLaunches() as recorded:
+            state, m = step(state, batches[0], draws[0])
+            torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        if timed:
+            raise
+        print(f"[train] {name}: does not fit on the card: "
+              f"{str(e).splitlines()[0]}; card {card}", flush=True)
+        del state, batches, draws, det, start
+        torch.cuda.empty_cache()
+        return None
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mm = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in mm.values()):
+        fail(f"{name}: non-finite losses: {mm}")
+    if not timed:
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(f"[train] {name}: one step (the first, cold) {warm_ms:.1f} ms; "
+              f"it fits, peak device memory {peak:.2f} GiB of {total:.2f} "
+              f"GiB; launches {no_launches(name, kernels[:-1])} and K4 "
+              f"{kernels[-1].launches}; card {card}", flush=True)
+        del state, batches, draws, det, start, recorded
+        torch.cuda.empty_cache()
+        return {}, warm_ms, peak, []
+    print(f"[train] {name} warm-up step: {warm_ms:.1f} ms, "
+          f"{len(recorded.launches)} K4 launches", flush=True)
+
+    alpha = cfg.EMA.ALPHA
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, ema_errs = [], [], []
+    for i in range(1, 1 + timed):
+        s_before, t_before = params_of(state.student), params_of(
+            state.teacher)
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i], draws[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        err, copied = teacher_blend_err(t_before, params_of(state.teacher),
+                                        s_before, alpha)
+        if not copied:
+            fail(f"{name}: the teacher's query_embed is not the student's "
+                 f"from before timed step {i}")
+        ema_errs.append(err)
+        del s_before, t_before
+    launches = {k.name: k.launches for k in kernels}
+    want = {k.name: 0 for k in kernels}
+    want["lapjv"] = 2 * timed
+    if launches != want:
+        fail(f"{name}: {timed} steps launched {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, mm in enumerate(metrics):
+        bad = [k for k, v in mm.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{name}: non-finite losses at timed step {i}: {bad}")
+        if not mm.get("loss_ce_distill", 0.0) > 0:
+            fail(f"{name}: loss_ce_distill is {mm.get('loss_ce_distill')} "
+                 f"at timed step {i}: the distill stream is gated")
+        if mm["num_pseudo_labels"] != cfg.TEST.DETECTIONS_PER_IMAGE:
+            fail(f"{name}: {mm['num_pseudo_labels']} pseudo-labels per "
+                 f"image at timed step {i}")
+    if max(ema_errs) > 1e-6:
+        fail(f"{name}: the teacher is not alpha t + (1 - alpha) s of the "
+             f"step before: worst relative error {max(ema_errs):.3g}")
+    trainable = {k for k, p in state.student.named_parameters()
+                 if p.requires_grad}
+    after = params_of(state.student)
+    moved = {k for k, v in after.items() if not torch.equal(v, start[k])}
+    if moved != trainable:
+        fail(f"{name}: trainable parameters that did not move "
+             f"{sorted(trainable - moved)[:5]}, frozen ones that did "
+             f"{sorted(moved - trainable)[:5]}")
+    med = median(times)
+    print(f"[train] {name}, {timed} steps: ms {fmt(times)} (median "
+          f"{med:.2f}), {2 * n * 1e3 / med:.2f} images/s at the median; "
+          f"launches {launches}; peak device memory {peak:.2f} GiB; "
+          f"num_pseudo_labels {[mm['num_pseudo_labels'] for mm in metrics]};"
+          f" per step the teacher's query_embed is the student's before the "
+          f"step and its other parameters the EMA (alpha {alpha}, worst "
+          f"relative error {max(ema_errs):.3g}, tol 1e-6); all "
+          f"{len(trainable)} trainable parameters moved, the "
+          f"{len(after) - len(trainable)} frozen ones (stem, res2) did not; "
+          f"card {card}", flush=True)
+    print(f"[train] {name}, losses of the last timed step: " + json.dumps(
+        {k: round(v, 5) for k, v in metrics[-1].items()}), flush=True)
+
+    stages = {}
+    t = [time.perf_counter()]
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[stage] = (now - t[0]) * 1e3
+        t[0] = now
+
+    torch.cuda.synchronize()
+    t[0] = time.perf_counter()
+    state, _ = step(state, batches[-2], draws[-2], mark=mark)
+    print(f"[train] {name}, one step by stage (ms, synchronized): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    traced = device_busy(lambda: step(state, batches[-1], draws[-1]))
+    if traced is None:
+        print(f"[train] {name} device busy share: not measured (the profiler "
+              "saw no device events)")
+    else:
+        busy, top, per_kernel, _ = traced
+        ms, share = msda_share(per_kernel, busy)
+        k4 = sum(v for k, (v, _) in per_kernel.items() if "lapjv" in k)
+        print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
+              f"{med:.2f} ms median step, idle share "
+              f"{max(0.0, 1 - busy / med):.3f}; MSDA's grid_sampler_2d "
+              f"forward and backward {ms:.2f} ms, {share:.3f} of busy; K4 "
+              f"{k4:.3f} ms; top kernels: "
+              + "; ".join(f"{k[:60]} {v:.2f} ms x{c}" for k, v, c in top),
+              flush=True)
+    records = recorded.launches
+    del state, batches, draws, det, start, after
+    torch.cuda.empty_cache()
+    return launches, med, peak, records
+
+
+def detr_published_chunk(card, kernels):
+    """One step at the published SOLVER.IMS_PER_GPU (16 + 16): its peak, or
+    that it does not fit and the smallest TPU.GRAD_ACCUM that does."""
+    for accum in (1, 2, 4, 8):
+        r = detr_training_phase(
+            card, kernels, {"TPU.GRAD_ACCUM": accum}, n=DETR_PUBLISHED_CHUNK,
+            timed=0, label=f"Deformable DETR at the published "
+            f"SOLVER.IMS_PER_GPU, TPU.GRAD_ACCUM {accum}")
+        if r is not None:
+            return accum, r[1], r[2]
+    fail("Deformable DETR: 16 + 16 does not fit at TPU.GRAD_ACCUM 8")
+
+
+def tiny_detr_config(overrides=None):
+    """The ALDI-Best-DETR recipe cut to its tiny float32 form: 2 + 2
+    layers, d_model 64, FFN 128, 4 heads, 20 queries, 3 classes, canvas
+    128, MAX_GT 8, 10 detections, no warmup and no dropout (the CPU's and
+    the card's generators draw different masks), EMA.ALPHA 0.9,
+    TEACHER.THRESHOLD 0."""
+    t = "MODEL.DEFORMABLE_DETR.TRANSFORMER."
+    return detr_config({
+        "MODEL.DEFORMABLE_DETR.NUM_CLASSES": 3, t + "ENC_LAYERS": 2,
+        t + "DEC_LAYERS": 2, t + "NUM_QUERIES": 20, t + "HIDDEN_DIM": 64,
+        t + "DIM_FEEDFORWARD": 128, t + "NHEADS": 4, t + "DROPOUT": 0.0,
+        "TPU.CANVAS": (128, 128), "TPU.MAX_GT": 8,
+        "TEST.DETECTIONS_PER_IMAGE": 10, "SOLVER.WARMUP_ITERS": 0,
+        "EMA.ALPHA": 0.9, "DOMAIN_ADAPT.TEACHER.THRESHOLD": 0.0,
+        **(overrides or {})})
+
+
+def tiny_detr_reference_check(kernel, overrides=None):
+    """A tiny float32 Deformable DETR (``tiny_detr_config`` with
+    ``overrides``) on the card against the same detector on the CPU, TF32
+    off, the same seeded weights: a request's detections (classes equal,
+    boxes within 1e-3 px, scores 1e-4), then one ALDI-Best-DETR step on
+    the same batch and draws (made on the CPU and moved). The card's
+    teacher pass is held against the CPU's (pseudo-labels' valid flags and
+    classes equal, boxes within 1e-3 px) and the card's step goes on from
+    the CPU's pseudo-labels: a box one ulp apart could change a Hungarian
+    assignment. Losses within 1e-4 relative; parameters, the student's
+    and the teacher's, within 2 * SOLVER.BASE_LR (AdamW's first step moves
+    an entry by about lr * sign(g), and an entry whose gradient sits at
+    float32 noise can go either way) with at most 0.1% of the entries
+    beyond 1e-6. K4 launches on the card step (``kernel``: 2 per step, 4
+    with two-stage), never on the CPU."""
+    import numpy as np
+    import torch
+
+    from aldi_tpu_torch.engine.export import make_serving_fn
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = tiny_detr_config(overrides)
+    name = f"tiny float32 {model_name(cfg)}"
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    boxes[:, :4, :2] = rng.uniform(0, 80, (2, 4, 2))
+    boxes[:, :4, 2:] = boxes[:, :4, :2] + rng.uniform(12, 48, (2, 4, 2))
+    batch = {"labeled": {
+        "image": rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32),
+        "sizes": np.array([[128, 128], [112, 120]], np.int32),
+        "boxes": boxes, "classes": rng.integers(0, 3, (2, 8)).astype(
+            np.int32), "valid": np.arange(8)[None].repeat(2, 0) < 4},
+        "unlabeled": {
+        "image": rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32),
+        "sizes": np.array([[128, 128], [120, 100]], np.int32)}}
+    batch = {s: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+             for s, d in batch.items()}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        cpu, card = build_detector(cfg, device="cpu"), build_detector(cfg)
+        weights = seeded_weights(cpu, seed=1)
+        images, sizes = batch["unlabeled"]["image"], batch["unlabeled"][
+            "sizes"]
+        want = make_serving_fn(cpu, weights)(images, sizes)
+        got = {k: v.cpu() for k, v in make_serving_fn(card, weights)(
+            images, sizes).items()}
+        if not (torch.equal(got["valid"], want["valid"])
+                and torch.equal(got["classes"], want["classes"])):
+            fail(f"{name}: detections differ between card and CPU")
+        errs["boxes"] = float((got["boxes"] - want["boxes"]).abs().max())
+        errs["scores"] = float((got["scores"] - want["scores"]).abs().max())
+
+        draws = draw_step(torch.Generator().manual_seed(3), cpu, 2, 2)
+        saved = {}
+        cpu_ctx, card_ctx = cpu.forward_teacher_ctx, card.forward_teacher_ctx
+
+        def record(*args, **kwargs):
+            saved["cpu"] = cpu_ctx(*args, **kwargs)
+            return saved["cpu"]
+
+        def from_cpu(*args, **kwargs):
+            (_, pseudo, _), want_ctx = card_ctx(*args, **kwargs), moved(
+                saved["cpu"], card.device)
+            w_pseudo = want_ctx[1]
+            m = w_pseudo.valid
+            if not (torch.equal(pseudo.valid, m) and m.any() and torch.equal(
+                    pseudo.classes[m], w_pseudo.classes[m])):
+                fail(f"{name}: pseudo-labels differ between card and CPU")
+            errs["pseudo boxes"] = float(
+                (pseudo.boxes[m] - w_pseudo.boxes[m]).abs().max())
+            return want_ctx
+
+        cpu.forward_teacher_ctx, card.forward_teacher_ctx = record, from_cpu
+        results = []
+        for det in (cpu, card):
+            kernel.launches = 0
+            state = create_train_state(cfg, det, weights)
+            state, m = make_train_step(cfg, det)(
+                state, moved(batch, det.device), moved(draws, det.device))
+            results.append(({k: float(v) for k, v in m.items()},
+                            params_of(state.student), params_of(state.teacher),
+                            kernel.launches))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (want_m, want_s, want_t, cpu_k4), (got_m, got_s, got_t, card_k4) = results
+    per_step = 4 if cfg.MODEL.DEFORMABLE_DETR.TWO_STAGE else 2
+    if cpu_k4 != 0 or card_k4 != per_step:
+        fail(f"{name}: K4 launched {cpu_k4} times on the CPU step and "
+             f"{card_k4} on the card's, expected 0 and {per_step}")
+    loss_err = max(abs(got_m[k] - v) / max(abs(v), 1e-3)
+                   for k, v in want_m.items())
+    lr = cfg.SOLVER.BASE_LR
+    worst, share = {}, {}
+    for who, g, w in (("student", got_s, want_s), ("teacher", got_t, want_t)):
+        diff = [(g[k].cpu() - v).abs() for k, v in w.items()]
+        worst[who] = max(float(d.max()) for d in diff)
+        share[who] = sum(int((d > 1e-6).sum()) for d in diff) / sum(
+            d.numel() for d in diff)
+    losses = json.dumps({k: round(v, 5) for k, v in want_m.items()})
+    print(f"[reference] {name}, card vs CPU: detections boxes max abs err "
+          f"{errs['boxes']:.3g} (tol 1e-3), scores {errs['scores']:.3g} "
+          f"(tol 1e-4); DAOD step losses {losses}; teacher pass "
+          f"pseudo-labels equal, boxes max abs err {errs['pseudo boxes']:.3g}"
+          f" (tol 1e-3); worst relative loss error {loss_err:.3g} (tol "
+          f"1e-4); parameters max abs err {worst} (tol {2 * lr:.3g}), share "
+          f"of entries beyond 1e-6 {share} (tol 1e-3); K4 {card_k4} launches "
+          f"on the card step", flush=True)
+    if (errs["boxes"] > 1e-3 or errs["scores"] > 1e-4
+            or errs["pseudo boxes"] > 1e-3 or loss_err > 1e-4
+            or max(worst.values()) > 2 * lr or max(share.values()) > 1e-3):
+        fail(f"{name}: card and CPU disagree")
+
+
 def fmt(xs, digits=2):
     return ", ".join(f"{x:.{digits}f}" for x in xs)
 
@@ -2891,6 +3517,11 @@ def model_name(cfg):
     """"R50-FPN", "ConvNeXt-L", "ViTDet-B" or "YOLOv5-m" for the log
     lines, with " align" when a discriminator is on."""
     name = cfg.MODEL.BACKBONE.NAME
+    if cfg.MODEL.META_ARCHITECTURE == "DeformableDETR":
+        dd = cfg.MODEL.DEFORMABLE_DETR
+        return "Deformable DETR" + (" box refine" if dd.WITH_BOX_REFINE
+                                    else "") + (" two-stage" if dd.TWO_STAGE
+                                                else "")
     if cfg.MODEL.META_ARCHITECTURE == "Yolo":
         variant = cfg.MODEL.YAML.split("//")[-1].replace(".yaml", "")
         out = "YOLOv5-" + variant[len("yolov5"):]
@@ -2922,12 +3553,14 @@ def main():
     from aldi_tpu_torch.ops import _build
     from aldi_tpu_torch.ops.flash_attn_kernel import (flash_attn_bwd,
                                                       flash_attn_fwd)
+    from aldi_tpu_torch.ops.lapjv_kernel import lapjv
     from aldi_tpu_torch.ops.match_kernel import low_quality_mask, match_iou
     from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 
     flagship_kernels = [match_iou, low_quality_mask, roi_align_fwd,
                         roi_align_bwd]
     vit_kernels = flagship_kernels + [flash_attn_fwd, flash_attn_bwd]
+    all_kernels = vit_kernels + [lapjv]  # K4 last
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -2937,7 +3570,7 @@ def main():
 
     # -- 1. build every kernel from the checkout's sources
     t0 = time.perf_counter()
-    libraries = sorted({k.library for k in vit_kernels})
+    libraries = sorted({k.library for k in all_kernels})
     logs = _build.build(libraries)
     print(f"[build] {len(logs)} of {len(libraries)} kernel libraries "
           f"({', '.join(libraries)}) compiled in "
@@ -2982,6 +3615,11 @@ def main():
     check_attn("ViTDet-B step launch", torch.bfloat16, *VIT_GRID,
                4 * VIT_HEADS, seed=25, kernel_iters=5, plain_iters=1,
                library=True)
+    # K4: the published 16 + 16 chunk's 96 problems (6 layers x 16 images)
+    # of 100 gt rows x 300 queries, with deliberate ties
+    k4_synthetic = check_lapjv(
+        "synthetic with ties", *tied_lapjv_problems(
+            torch.Generator(device="cuda").manual_seed(26), 96, 100, 300))
     torch.cuda.empty_cache()
 
     # -- 3. serving phase: each detector through its entry points (K2 on
@@ -3048,18 +3686,42 @@ def main():
     # and the tiny card-vs-CPU step. None of the six kernels is on its
     # paths: each path must launch none
     yolo_launches = {"YOLOv5-m serving": yolo_serving_phase(card,
-                                                           vit_kernels)}
+                                                           all_kernels)}
     yolo_launches["YOLOv5-m training"] = yolo_training_phase(
-        card, vit_kernels)[0]
+        card, all_kernels)[0]
     yolo_launches["YOLOv5-m align training"] = yolo_training_phase(
-        card, vit_kernels, YOLO_ALIGN)[0]
-    yolo_training_phase(card, vit_kernels, n=YOLO_PUBLISHED_CHUNK, timed=0,
+        card, all_kernels, YOLO_ALIGN)[0]
+    yolo_training_phase(card, all_kernels, n=YOLO_PUBLISHED_CHUNK, timed=0,
                         label="YOLOv5-m at the published SOLVER.IMS_PER_GPU")
     yolo_launches["YOLOv5-m artifact"] = artifact_phase(
-        card, YOLO_ALDI, vit_kernels, {})
+        card, YOLO_ALDI, all_kernels, {})
     tiny_yolo_train_reference_check()
 
-    # -- 8. result lines. ``launches``: K1/K2 from the flagship's timed
+    # -- 8. Deformable DETR: serving, the DAOD step (and once at the
+    # published chunk of 16 + 16), K4 at the warm-up step's own launches,
+    # the artifact and the tiny card-vs-CPU detectors and steps. K4 is the
+    # only kernel of its paths: twice per step, never per request
+    t_detr = time.perf_counter()
+    detr_launches = {"Deformable DETR serving": detr_serving_phase(
+        card, all_kernels)}
+    detr_train, _, _, k4_records = detr_training_phase(card, all_kernels)
+    detr_launches["Deformable DETR training"] = detr_train
+    accum, chunk_ms, chunk_peak = detr_published_chunk(card, all_kernels)
+    print(f"[train] Deformable DETR at the published 16 + 16: "
+          f"TPU.GRAD_ACCUM {accum}, one cold step {chunk_ms:.1f} ms, peak "
+          f"{chunk_peak:.2f} GiB; card {card}", flush=True)
+    k4_steps = [check_lapjv(f"Deformable DETR step launch {i + 1}", cost,
+                            n_rows, kernel_iters=10)
+                for i, (cost, n_rows) in enumerate(k4_records)]
+    del k4_records
+    detr_launches["Deformable DETR artifact"] = artifact_phase(
+        card, DETR_ALDI, all_kernels, {})
+    tiny_detr_reference_check(lapjv)
+    tiny_detr_reference_check(lapjv, DETR_TWO_STAGE)
+    print(f"[time] the Deformable DETR phase took "
+          f"{time.perf_counter() - t_detr:.1f} s", flush=True)
+
+    # -- 9. result lines. ``launches``: K1/K2 from the flagship's timed
     # training steps, K3a/K3b from ViTDet-B's; ``launches_by_path`` has
     # every path's count (K2's forward and K3a also serve). The other
     # numbers: the kernel phase's, at the paths' shapes (K2's forward on a
@@ -3076,7 +3738,7 @@ def main():
                                 eval_launches["roi_align_fwd"]},
         **{f"{m} serving": v for m, v in serving_launches.items()},
         **{f"{m} artifact": v for m, v in artifact_launches.items()},
-        **yolo_launches}
+        **yolo_launches, **detr_launches}
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} "
           "s", flush=True)
     print(f"[card] {card}")
@@ -3108,6 +3770,19 @@ def main():
                                   align_step_kernels),
                                  ("R50-FPN trainer", trainer_kernels))}
         entries.append(entry)
+    # K4: launches from the DETR training steps; the numbers of the warm-up
+    # step's first launch (the labeled_strong stream's 24 problems)
+    keys = ("ms", "plain_ms", "scipy_ms", "bound_ms", "max_abs_err",
+            "settles_mean", "settles_max", "problems")
+    entries.append({
+        "name": lapjv.name, "route": "cuda", "source": lapjv.source,
+        "replaces": lapjv.replaces, "launches": detr_train["lapjv"],
+        "library_ms": None, **k4_steps[0],
+        "launches_by_path": {path: c["lapjv"] for path, c in by_path.items()
+                             if "lapjv" in c},
+        "step_launches": {"Deformable DETR training": [
+            {key: r[key] for key in keys} for r in k4_steps]},
+        "synthetic_tied": {key: k4_synthetic[key] for key in keys}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@ tiny detector on the card against the CPU in float32 with TF32 off, 1e-3 on
 box coordinates of up to 128 px and 1e-4 on scores, and the tiny training
 step 1e-4 relative on losses and 1e-5 on parameters (convolutions sum in
 another order on each device); the kernels' custom ops against their
-wrappers' direct results exactly (the same launch), and the tiny
+wrappers' direct results exactly (the same launch), the assignment
+solver K4 exactly equal to its plain version, and the tiny
 detector's exported ``cuda`` program against the eager serving path
 exactly, its ``cpu`` program with the tiny detector's tolerances.
 """
@@ -29,6 +30,8 @@ from aldi_tpu_torch.ops.anchors import AnchorGenerator
 from aldi_tpu_torch.ops.flash_attn import (attn_delta, flash_attention_relpos,
                                            flash_attn_plain)
 from aldi_tpu_torch.ops.flash_attn_kernel import flash_attn_bwd, flash_attn_fwd
+from aldi_tpu_torch.ops.lapjv import lapjv_plain
+from aldi_tpu_torch.ops.lapjv_kernel import lapjv
 from aldi_tpu_torch.ops.match_kernel import (
     low_quality_mask, low_quality_mask_plain, match_boxes, match_boxes_plain,
     match_iou, match_iou_plain)
@@ -39,7 +42,7 @@ from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 from chip_smoke import (ALIGN, CONVNEXT_ALDI, FLAGSHIP, VIT_ALDI,
                         attn_inputs, check_attn, tiny_artifact_check,
                         tiny_reference_check, tiny_train_reference_check,
-                        tiny_vit)
+                        tiny_vit, tied_lapjv_problems)
 from torch_port_match_cases import CASES as MATCH_CASES
 from torch_port_match_cases import match_case
 from torch_port_threads import capped_torch_threads  # noqa: F401
@@ -137,6 +140,9 @@ def _op_args(card, name):
         grad = torch.randn((3, 64, 7, 7, 64), device=card).to(torch.bfloat16)
         return (grad, bx, levels, [d for x in f for d in x.shape[1:3]],
                 torch.bfloat16, STRIDES, 2)
+    if name == "lapjv":
+        return tied_lapjv_problems(torch.Generator(device=card).manual_seed(
+            54), 6, 10, 30)
     q, k, v, bh, bw, dout = attn_inputs(torch.bfloat16, 53, 4, 16, 24)
     if name == "flash_attn_fwd":
         return q, k, v, bh, bw, 0.125, 16, 24
@@ -148,7 +154,7 @@ def _op_args(card, name):
 KERNEL_OPS = {"match_iou": match_iou, "low_quality_mask": low_quality_mask,
               "roi_align_fwd": roi_align_fwd, "roi_align_bwd": roi_align_bwd,
               "flash_attn_fwd": flash_attn_fwd,
-              "flash_attn_bwd": flash_attn_bwd}
+              "flash_attn_bwd": flash_attn_bwd, "lapjv": lapjv}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_OPS))
@@ -191,6 +197,23 @@ def _gt(card, b, m, seed, canvas=(256, 512)):
     valid[0, 0] = True
     return (torch.from_numpy(boxes).to(card),
             torch.from_numpy(valid).to(card))
+
+
+@pytest.mark.parametrize("shape", [(96, 100, 300), (24, 8, 20),
+                                   (3, 60, 5000)])
+def test_lapjv_kernel_equals_plain(card, shape):
+    """K4 against ``lapjv_plain``, exactly (col4row and the settles), on
+    problems with ties (duplicated rows, columns clipped to 1e4), with
+    n_rows from 0 to n; the last shape's state lives in global scratch."""
+    gen = torch.Generator(device=card).manual_seed(55)
+    cost, n_rows = tied_lapjv_problems(gen, *shape)
+    got = lapjv(cost, n_rows)
+    want = lapjv_plain(cost, n_rows)
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a, b)
+    random = torch.rand(shape, generator=gen, device=card)
+    for a, b in zip(lapjv(random, n_rows), lapjv_plain(random, n_rows)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", MATCH_CASES)

@@ -272,3 +272,64 @@ def yolo_variables(jdet, seed=0):
         return (rng.standard_normal(s.shape) * 0.05).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, dict(shapes))
+
+
+ALDI_DETR = "configs/cityscapes/ALDI-Best-DETR-Cityscapes.yaml"
+
+
+def detr_cfg(get_cfg, **overrides):
+    """The ALDI-Best-DETR recipe (``configs/cityscapes/ALDI-Best-DETR-
+    Cityscapes.yaml``) cut to the sizes of ``tests/test_detr.py:12``: 2 + 2
+    layers, d_model 64, FFN 128, 4 heads, 20 queries, 3 classes, canvas
+    128, MAX_GT 8, 10 detections per image, no weight file, without warmup
+    and (so that both packages compute the same function) without dropout;
+    ``overrides``: {"A.B": value}."""
+    cfg = get_cfg()
+    cfg.merge_from_file(ALDI_DETR)
+    cfg.MODEL.WEIGHTS = ""
+    dd = cfg.MODEL.DEFORMABLE_DETR
+    dd.NUM_CLASSES = 3
+    t = dd.TRANSFORMER
+    t.ENC_LAYERS = t.DEC_LAYERS = 2
+    t.NUM_QUERIES = 20
+    t.HIDDEN_DIM = 64
+    t.DIM_FEEDFORWARD = 128
+    t.NHEADS = 4
+    t.DROPOUT = 0.0
+    cfg.TPU.CANVAS = (128, 128)
+    cfg.TPU.MAX_GT = 8
+    cfg.TEST.DETECTIONS_PER_IMAGE = 10
+    cfg.SOLVER.WARMUP_ITERS = 0
+    for key, value in overrides.items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node[p]
+        node[leaf] = value
+    return cfg
+
+
+def detr_variables(jdet, seed=0):
+    """The JAX DETR detector's {"params", "frozen"} filled from a numpy
+    seed as ``seeded_variables`` fills them (the stem's gain 1/128, the
+    class heads' 3, so that scores are well apart), with the embeddings
+    (``level_embed``, ``query_embed``, the learned position tables) N(0, 1)
+    as the JAX initializers draw them."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(jdet.init_variables, jax.random.PRNGKey(0))
+
+    def fill(path, s):
+        names = [getattr(p, "key", str(p)) for p in path]
+        leaf = names[-1]
+        if leaf == "kernel":
+            gain = (1 / 128 if names[-2] == "stem_conv1" else
+                    3.0 if names[-2].startswith("class_embed") else 1.0)
+            std = gain / np.sqrt(np.prod(s.shape[:-1]))
+            return (rng.standard_normal(s.shape) * std).astype(np.float32)
+        if leaf in ("level_embed", "query_embed", "row_embed", "col_embed"):
+            return rng.standard_normal(s.shape).astype(np.float32)
+        if leaf in ("weight", "running_var", "scale"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (rng.standard_normal(s.shape) * 0.05).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
