@@ -11,6 +11,10 @@ Port of ``aldi_tpu/data/loader.py`` (``get_dataset_records``,
   assembled by whichever thread, from records chosen by a counter-based
   RNG with the JAX package's numpy seeds, so a run (and a resumed run,
   through ``seek``) sees the same batches as the JAX package's loader;
+- under data parallelism (``shard``) a rank's loader delivers only its
+  share of each global batch (``parallel/mesh.py`` ``shard_positions``):
+  it draws every record's transform of the global batch, in order, and
+  decodes only its own;
 - everything is already padded and stacked, so the training loop does no
   per-record Python work.
 
@@ -29,7 +33,9 @@ import torch
 from .. import resolve_device
 from .catalog import DatasetCatalog
 from .coco import filter_empty
-from .transforms import transform_record
+from ..parallel.mesh import shard_positions
+from .transforms import (apply_transform, draw_transform,
+                         transform_record)
 
 
 def get_dataset_records(names, filter_empty_annotations=True) -> List[dict]:
@@ -44,7 +50,10 @@ def get_dataset_records(names, filter_empty_annotations=True) -> List[dict]:
 
 
 class StreamLoader:
-    """Infinite loader over one record list. next() -> stacked batch dict."""
+    """Infinite loader over one record list. next() -> stacked batch dict.
+
+    ``batch_size`` is the global batch's; ``shard`` (rank, world, chunks)
+    keeps a rank's ``shard_positions`` of it."""
 
     def __init__(
         self,
@@ -56,31 +65,36 @@ class StreamLoader:
         seed: int = 0,
         num_threads: int = 4,
         prefetch: int = 4,
+        shard=(0, 1, 1),
     ):
         self.records = records
         self.batch_size = batch_size
+        self.positions = set(shard_positions(batch_size, shard[2], shard[0],
+                                             shard[1]).tolist())
         self.canvas = tuple(canvas)
         self.seed = seed
         self.is_train = is_train
-        self.tf_params = dict(
+        self.draw_params = dict(
             min_sizes=[int(s) for s in (
                 cfg.INPUT.MIN_SIZE_TRAIN if is_train
                 else (cfg.INPUT.MIN_SIZE_TEST,)
             )],
-            max_size=int(
-                cfg.INPUT.MAX_SIZE_TRAIN if is_train else cfg.INPUT.MAX_SIZE_TEST
-            ),
-            canvas=self.canvas,
             flip=cfg.INPUT.RANDOM_FLIP != "none",
             sampling=cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING,
-            max_gt=cfg.TPU.MAX_GT,
-            bgr=cfg.INPUT.FORMAT.upper() == "BGR",
             crop={
                 "enabled": cfg.INPUT.CROP.ENABLED,
                 "type": cfg.INPUT.CROP.TYPE,
                 "size": list(cfg.INPUT.CROP.SIZE),
             },
             is_train=is_train,
+        )
+        self.apply_params = dict(
+            max_size=int(
+                cfg.INPUT.MAX_SIZE_TRAIN if is_train else cfg.INPUT.MAX_SIZE_TEST
+            ),
+            canvas=self.canvas,
+            max_gt=cfg.TPU.MAX_GT,
+            bgr=cfg.INPUT.FORMAT.upper() == "BGR",
         )
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
         self._next_submit = 0
@@ -108,11 +122,12 @@ class StreamLoader:
         rng = np.random.default_rng(
             (self.seed * 7_368_787 + batch_idx) & 0x7FFFFFFF
         )
-        idxs = self._indices_for_batch(batch_idx)
-        recs = [
-            transform_record(self.records[i], rng, **self.tf_params)
-            for i in idxs
-        ]
+        recs = []
+        for pos, i in enumerate(self._indices_for_batch(batch_idx)):
+            choice = draw_transform(self.records[i], rng, **self.draw_params)
+            if pos in self.positions:
+                recs.append(apply_transform(self.records[i], choice,
+                                            **self.apply_params))
         keys = ["image", "sizes", "boxes", "classes", "valid"]
         return {k: np.stack([r[k] for r in recs]) for k in keys}
 
@@ -149,10 +164,13 @@ class WeakStrongLoader:
     Mirrors the reference loader contract (``aldi/trainer.py:210-240``):
     batch sizes derive from SOLVER.IMS_PER_BATCH split by
     DATASETS.BATCH_CONTENTS / BATCH_RATIOS; either stream may be absent.
+    SOLVER.IMS_PER_BATCH is the global batch: ``shard`` (rank, world)
+    delivers a rank's share of each stream, for each of the
+    TPU.GRAD_ACCUM chunks its contiguous 1/W.
     """
 
     def __init__(self, cfg, canvas, seed: int = 0,
-                 num_threads: Optional[int] = None):
+                 num_threads: Optional[int] = None, shard=(0, 1)):
         contents = cfg.DATASETS.BATCH_CONTENTS
         ratios = cfg.DATASETS.BATCH_RATIOS
         if len(contents) != len(ratios):
@@ -181,6 +199,7 @@ class WeakStrongLoader:
             default=0,
         )
         threads = num_threads or cfg.TPU.DATA_THREADS
+        shard = (*shard, max(int(cfg.TPU.GRAD_ACCUM), 1))
 
         self.labeled = None
         if labeled_bs > 0 and len(cfg.DATASETS.TRAIN):
@@ -189,7 +208,7 @@ class WeakStrongLoader:
                     cfg.DATASETS.TRAIN, cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS
                 ),
                 labeled_bs, cfg, canvas, True, seed, threads,
-                cfg.TPU.PREFETCH,
+                cfg.TPU.PREFETCH, shard,
             )
         self.unlabeled = None
         if unlabeled_bs > 0 and len(cfg.DATASETS.UNLABELED):
@@ -199,7 +218,7 @@ class WeakStrongLoader:
                     cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
                 ),
                 unlabeled_bs, cfg, canvas, True, seed + 1, threads,
-                cfg.TPU.PREFETCH,
+                cfg.TPU.PREFETCH, shard,
             )
         self.canvas = canvas
 
@@ -326,12 +345,16 @@ class DevicePrefetcher:
 class TestLoader:
     """Sequential eval loader: yields (batch, metas) where metas carry
     image_id and the resize scale for mapping canvas boxes back to original
-    image coordinates (done on the host by the evaluator)."""
+    image coordinates (done on the host by the evaluator). ``shard`` (rank,
+    world) keeps a rank's strided slice of the test set, as the JAX
+    package's does; the evaluator gathers the predictions."""
 
     __test__ = False  # not a pytest class
 
-    def __init__(self, dataset_name: str, cfg, canvas, batch_size: int = 8):
-        self.records = DatasetCatalog.get(dataset_name)
+    def __init__(self, dataset_name: str, cfg, canvas, batch_size: int = 8,
+                 shard=(0, 1)):
+        rank, world = shard
+        self.records = DatasetCatalog.get(dataset_name)[rank::world]
         self.cfg = cfg
         self.canvas = tuple(canvas)
         self.batch_size = batch_size

@@ -56,11 +56,9 @@ def _boxes_to_arrays(anns, scale, max_gt, do_flip, out_w, out_h):
     return boxes, classes, valid
 
 
-def _random_crop(img, anns, rng, crop_type: str, crop_size):
-    """RandomCrop (inserted before the resize): relative_range, relative,
-    absolute or absolute_range crops; boxes are shifted and clipped into
-    the crop and empty ones dropped."""
-    w, h = img.size
+def _crop_box(w, h, rng, crop_type: str, crop_size):
+    """RandomCrop's (x0, y0, cw, ch) in an image of w x h, drawn from
+    ``rng``: relative_range, relative, absolute or absolute_range crops."""
     if crop_type == "relative_range":
         rh = crop_size[0] + rng.random() * (1.0 - crop_size[0])
         rw = crop_size[1] + rng.random() * (1.0 - crop_size[1])
@@ -80,6 +78,13 @@ def _random_crop(img, anns, rng, crop_type: str, crop_size):
         raise ValueError(f"unknown crop type {crop_type}")
     y0 = int(rng.integers(0, h - ch + 1))
     x0 = int(rng.integers(0, w - cw + 1))
+    return x0, y0, cw, ch
+
+
+def _crop(img, anns, box):
+    """The crop ``box`` (inserted before the resize): boxes are shifted and
+    clipped into the crop and empty ones dropped."""
+    x0, y0, cw, ch = box
     img = img.crop((x0, y0, x0 + cw, y0 + ch))
     out = []
     for a in anns:
@@ -93,28 +98,16 @@ def _random_crop(img, anns, rng, crop_type: str, crop_size):
     return img, out
 
 
-def transform_record(
-    record: dict,
-    rng: np.random.Generator,
-    min_sizes: List[int],
-    max_size: int,
-    canvas: Tuple[int, int],
-    flip: bool = True,
-    sampling: str = "choice",
-    max_gt: int = 100,
-    bgr: bool = True,
-    crop: dict = None,
-    is_train: bool = True,
-):
-    """record (COCO dict) -> dict of fixed-shape numpy arrays: {image uint8
-    [H, W, 3] on the canvas, sizes [2], boxes [G, 4], classes [G],
-    valid [G], image_id, scale}. ``rng`` is drawn from in the JAX
-    package's order (short edge, flip, then the crop)."""
-    anns_src = [
-        a for a in record.get("annotations", [])
-        if not a["iscrowd"] and not a.get("ignore", 0)
-    ]
-    do_crop = bool(is_train and crop and crop.get("enabled"))
+def draw_transform(record: dict, rng: np.random.Generator,
+                   min_sizes: List[int], flip: bool = True,
+                   sampling: str = "choice", crop: dict = None,
+                   is_train: bool = True):
+    """The random choices of ``transform_record`` for ``record``, drawn
+    from ``rng`` in the JAX package's order (short edge, flip, then the
+    crop): (short edge, flip, crop box or None). The crop's draws need the
+    image's size, for which only the file's header is read: a rank of data
+    parallelism draws every record of the global batch in order and
+    decodes only its own."""
     if is_train and sampling == "range" and len(min_sizes) == 2:
         short = int(rng.integers(min_sizes[0], min_sizes[1] + 1))
     elif is_train:
@@ -122,12 +115,28 @@ def transform_record(
     else:
         short = int(min_sizes[0])
     do_flip = bool(is_train and flip and rng.random() < 0.5)
+    box = None
+    if is_train and crop and crop.get("enabled"):
+        with Image.open(record["file_name"]) as im:
+            w, h = im.size
+        box = _crop_box(w, h, rng, crop["type"], crop["size"])
+    return short, do_flip, box
 
+
+def apply_transform(record: dict, choice, max_size: int,
+                    canvas: Tuple[int, int], max_gt: int = 100,
+                    bgr: bool = True):
+    """``record`` decoded and transformed by ``choice``
+    (``draw_transform``'s): the output of ``transform_record``."""
+    short, do_flip, box = choice
+    anns_src = [
+        a for a in record.get("annotations", [])
+        if not a["iscrowd"] and not a.get("ignore", 0)
+    ]
     img = Image.open(record["file_name"])
     img = img.convert("RGB")
-    if do_crop:
-        img, anns_src = _random_crop(img, anns_src, rng, crop["type"],
-                                     crop["size"])
+    if box is not None:
+        img, anns_src = _crop(img, anns_src, box)
     img, scale = resize_shortest_edge(img, short, max_size)
     w, h = img.size
 
@@ -157,3 +166,25 @@ def transform_record(
         "image_id": record["image_id"],
         "scale": scale,
     }
+
+
+def transform_record(
+    record: dict,
+    rng: np.random.Generator,
+    min_sizes: List[int],
+    max_size: int,
+    canvas: Tuple[int, int],
+    flip: bool = True,
+    sampling: str = "choice",
+    max_gt: int = 100,
+    bgr: bool = True,
+    crop: dict = None,
+    is_train: bool = True,
+):
+    """record (COCO dict) -> dict of fixed-shape numpy arrays: {image uint8
+    [H, W, 3] on the canvas, sizes [2], boxes [G, 4], classes [G],
+    valid [G], image_id, scale}. ``rng`` is drawn from in the JAX
+    package's order (short edge, flip, then the crop)."""
+    choice = draw_transform(record, rng, min_sizes, flip, sampling, crop,
+                            is_train)
+    return apply_transform(record, choice, max_size, canvas, max_gt, bgr)

@@ -20,6 +20,10 @@ iteration); otherwise MODEL.WEIGHTS is loaded into the student, from the
 file's ``ema`` entry first when ``EMA.LOAD_FROM_EMA_ON_START`` (the burn-in
 -> DA handoff), and copied into the teacher. The JAX package's orbax
 directories are not read.
+
+Under data parallelism (``parallel/mesh.py``) rank 0 writes the files and
+every rank waits for them before it goes on; every rank loads them, onto
+its own device.
 """
 
 import json
@@ -28,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh
 from .checkpoint_convert import (load_d2_pkl_state_dict, load_torch_state_dict,
                                  reference_state_dict_to_port)
 from .train_step import TrainState
@@ -55,9 +60,15 @@ class Checkpointer:
         """Write ``name`` (``model_{step:07d}`` by default) ``.pth``;
         ``extra``: JSON-serializable trainer bookkeeping (the best-AP50
         map), kept so that a resumed run does not re-save a worse
-        "best"."""
+        "best". Rank 0 writes; every rank waits for it."""
         name = name or f"model_{state.step:07d}"
         path = os.path.join(self.dir, f"{name}.pth")
+        if mesh.is_main():
+            self._write(state, path, name, extra)
+        mesh.barrier()
+        return path
+
+    def _write(self, state, path, name, extra):
         ckpt = {
             "model": state.student.state_dict(),
             "optimizer": state.optimizer.state_dict(),
@@ -77,7 +88,6 @@ class Checkpointer:
             f.write(name)
         if self.logger:
             self.logger.info(f"Saved checkpoint {path}")
-        return path
 
     def has_checkpoint(self) -> bool:
         return os.path.exists(os.path.join(self.dir, _LAST))
@@ -93,7 +103,8 @@ class Checkpointer:
         """Restore everything of ``path`` into ``state`` in place: the
         student, the teacher, the optimizer's buffers and the step. Returns
         the file's ``trainer_state``."""
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        device = next(state.student.parameters()).device
+        ckpt = torch.load(path, map_location=device, weights_only=True)
         state.student.load_state_dict(ckpt["model"])
         if state.teacher is not None and "ema" in ckpt:
             state.teacher.load_state_dict(_strip_ema_prefix(ckpt["ema"]))

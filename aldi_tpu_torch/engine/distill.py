@@ -10,12 +10,24 @@ and the same sampled ROI set.
 - ROI classification: soft CE or KL at CLS_TMP
 - ROI regression: L1 on the per-class deltas of the teacher's argmax class,
   where that class is foreground, normalized by the sampled proposals.
+
+Every denominator is the global batch's: ``global_count`` all-reduces
+it, so every rank calls these functions with the same flags, in the same
+order (``parallel/mesh.py``'s contract).
 """
 
 import torch
 
 from ..ops.losses import (bce_with_logits, kl_div_log_targets, masked_mean,
                           smooth_l1, softmax_cross_entropy)
+from ..parallel.mesh import global_count
+
+
+def _global_mean(values, mask):
+    """``masked_mean`` over the global batch: the rank's masked sum over
+    the mask's count summed across the ranks (``global_count``)."""
+    mask = mask.to(values.dtype)
+    return masked_mean(values, mask, count=global_count(mask.sum()))
 
 
 def rpn_distill_losses(
@@ -33,10 +45,10 @@ def rpn_distill_losses(
     if do_obj:
         t_probs = torch.sigmoid(teacher_logits / obj_temperature)
         obj = bce_with_logits(student_logits, t_probs)
-        out["loss_obj_bce"] = masked_mean(obj, valid)
+        out["loss_obj_bce"] = _global_mean(obj, valid)
     if do_reg:
         reg = smooth_l1(student_deltas, teacher_deltas, 0.0)
-        out["loss_rpn_l1"] = masked_mean(reg, fg[..., None].expand_as(reg))
+        out["loss_rpn_l1"] = _global_mean(reg, fg[..., None].expand_as(reg))
     return out
 
 
@@ -57,12 +69,12 @@ def roih_distill_losses(
         if cls_loss_type == "CE":
             t_probs = torch.softmax(teacher_cls / cls_temperature, dim=-1)
             ce = softmax_cross_entropy(student_cls, t_probs)
-            out["loss_cls_ce"] = masked_mean(ce, sampled_valid)
+            out["loss_cls_ce"] = _global_mean(ce, sampled_valid)
         elif cls_loss_type == "KL":
             kl = kl_div_log_targets(
                 torch.log_softmax(student_cls, dim=-1),
                 torch.log_softmax(teacher_cls / cls_temperature, dim=-1))
-            out["loss_cls_ce"] = masked_mean(kl, sampled_valid)
+            out["loss_cls_ce"] = _global_mean(kl, sampled_valid)
         else:
             raise ValueError(
                 f"cls_loss_type must be CE or KL: {cls_loss_type}")
@@ -75,7 +87,7 @@ def roih_distill_losses(
         sd = torch.gather(student_deltas.reshape(shape), -2, idx).squeeze(-2)
         td = torch.gather(teacher_deltas.reshape(shape), -2, idx).squeeze(-2)
         reg = smooth_l1(sd, td, 0.0).sum(-1)
-        normalizer = sampled_valid.sum().clamp(min=1)
+        normalizer = global_count(sampled_valid.sum()).clamp(min=1)
         out["loss_roih_l1"] = (reg * fg).sum() / normalizer
     return out
 

@@ -1,23 +1,86 @@
 """Detection evaluation: inference over a dataset, then COCO AP.
 
-Port of ``inference_on_dataset`` (``aldi_tpu/engine/evaluator.py:84-161``),
-single process: inference over a ``TestLoader`` on the detector's device,
-canvas-space detections mapped back to original image coordinates on the
-host (the reference's ``do_postprocess`` rescale), and the COCO bbox
-protocol of ``engine/coco_eval.py``. Gathering predictions across
-processes (``gather_predictions``, ``:26-82``) waits for the multi-GPU
-item of ROADMAP.md.
+Port of ``inference_on_dataset`` (``aldi_tpu/engine/evaluator.py:84-161``):
+inference over a ``TestLoader`` on the detector's device, canvas-space
+detections mapped back to original image coordinates on the host (the
+reference's ``do_postprocess`` rescale), and the COCO bbox protocol of
+``engine/coco_eval.py``. Under data parallelism each rank scores a strided
+slice of the test set and the predictions are gathered to every rank
+(``gather_predictions``, ``:26-82``: fixed-width rows, the image id split
+in two float32 columns, padded to the largest count, then
+``all_gather``), so every rank computes the same AP.
 """
 
 import time
 from collections import defaultdict
 from typing import Dict
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.catalog import DatasetCatalog, MetadataCatalog
 from ..data.loader import TestLoader
+from ..parallel import mesh
 from .coco_eval import evaluate_detections
+
+PACK_WIDTH = 8
+
+
+def pack_predictions(predictions: Dict[int, list]) -> np.ndarray:
+    """Flatten per-image prediction dicts into fixed-width [N, 8] rows
+    (image_id hi | image_id lo | bbox xywh | score | category). The id is
+    split into two float32 columns (quotient and remainder by 2^20, each
+    exact in float32): one float32 holds integers exactly only up to 2^24,
+    so large COCO-style ids would collide after the gather."""
+    rows = [
+        [float(int(img_id) // (1 << 20)), float(int(img_id) % (1 << 20)),
+         *d["bbox"], d["score"], float(d["category_id"])]
+        for img_id, dets in predictions.items()
+        for d in dets
+    ]
+    return np.asarray(rows, np.float32).reshape(-1, PACK_WIDTH)
+
+
+def unpack_predictions(gathered: np.ndarray,
+                       counts: np.ndarray) -> Dict[int, list]:
+    """Inverse of ``pack_predictions`` over a gathered [P, cap, 8] array
+    with ragged per-rank row counts [P]; padding rows beyond each count are
+    ignored."""
+    out = defaultdict(list)
+    for p in range(gathered.shape[0]):
+        for row in gathered[p, : int(counts[p])]:
+            img_id = int(row[0]) * (1 << 20) + int(row[1])
+            out[img_id].append(
+                {
+                    "bbox": [float(x) for x in row[2:6]],
+                    "score": float(row[6]),
+                    "category_id": int(row[7]),
+                }
+            )
+    return dict(out)
+
+
+def gather_predictions(predictions: Dict[int, list]) -> Dict[int, list]:
+    """All-gather per-image predictions across the ranks so that every
+    rank scores the full test set (reference ``COCOEvaluator(distributed=
+    True)``, ``aldi/helpers.py:77``): packed rows padded to the largest
+    count, on the group's device. At world 1 the predictions as they
+    are."""
+    if mesh.world() == 1:
+        return predictions
+    dev = mesh.comm_device()
+    local = torch.from_numpy(pack_predictions(predictions)).to(dev)
+    n = torch.tensor([local.shape[0]], dtype=torch.int64, device=dev)
+    counts = [torch.zeros_like(n) for _ in range(mesh.world())]
+    dist.all_gather(counts, n)
+    counts = torch.cat(counts).cpu().numpy()
+    cap = max(int(counts.max()), 1)
+    padded = torch.zeros((cap, PACK_WIDTH), dtype=torch.float32, device=dev)
+    padded[: local.shape[0]] = local
+    gathered = [torch.zeros_like(padded) for _ in range(mesh.world())]
+    dist.all_gather(gathered, padded)
+    return unpack_predictions(torch.stack(gathered).cpu().numpy(), counts)
 
 
 def inference_on_dataset(
@@ -29,8 +92,10 @@ def inference_on_dataset(
     default) on a registered dataset. Returns the ``bbox/AP``,
     ``bbox/AP50``, ... keys of ``evaluate_detections`` and
     ``images_per_sec`` (host clock over the inference loop, loading
-    included)."""
-    loader = TestLoader(dataset_name, cfg, detector.canvas, batch_size)
+    included; the whole test set's images under data parallelism, where
+    each rank scores its strided slice)."""
+    loader = TestLoader(dataset_name, cfg, detector.canvas, batch_size,
+                        shard=(mesh.rank(), mesh.world()))
     md = MetadataCatalog.get(dataset_name)
 
     predictions = defaultdict(list)
@@ -55,10 +120,13 @@ def inference_on_dataset(
                     }
                 )
             n_images += 1
+    predictions = gather_predictions(dict(predictions))
     infer_time = time.time() - t0
 
     # ground truth in contiguous category ids
     records = DatasetCatalog.get(dataset_name)
+    if mesh.world() > 1:
+        n_images = len(records)
     annotations = {
         r["image_id"]: [
             {

@@ -25,6 +25,14 @@ forward and backward on the same parameters with its own draws, its
 gradients are summed into ``.grad`` scaled by 1/k, the losses are averaged
 over the chunks, and the optimizer steps once.
 
+Under data parallelism (``parallel/mesh.py``) the batch and the draws are
+a rank's share of the global batch's (``shard_draws``), every loss is
+the rank's share of the global batch's loss (global denominators), and
+the gradients are summed across the ranks once, after the last backward
+and before clipping and the optimizer (``all_reduce_grads``): XLA's
+inserted all-reduce in the JAX package's sharded step. The metrics are
+the rank's shares; their sum over the ranks is the global batch's.
+
 The JAX step draws from ``jax.random``; here ``draw_step`` makes every draw
 of a step up front from a ``torch.Generator`` (static shapes: the canvas's
 N anchors, POST_NMS_TOPK_TRAIN + MAX_GT ROI candidates, the canvas's
@@ -49,6 +57,7 @@ from ..data.strong_aug import strong_aug_draws, strong_augment
 from ..models.rcnn import check_trainable
 from ..models.resnet import FrozenBN
 from ..ops.matcher import sample_proposals_draws, subsample_indices_draws
+from ..parallel.mesh import all_reduce_grads
 from ..solver import build_lr_schedule, build_optimizer, clip_gradients, set_lr
 from ..structures import Instances
 from .distill import gate_hard_losses
@@ -392,6 +401,7 @@ def make_train_step(cfg, detector):
                 v = v.detach() / accum
                 loss_dict[k] = loss_dict[k] + v if k in loss_dict else v
         params = [p for g in opt.param_groups for p in g["params"]]
+        all_reduce_grads(params)
         clip_gradients(cfg, params)
         set_lr(opt, state.schedule(state.step))
         opt.step()

@@ -1,8 +1,9 @@
 """The DAOD trainer: loop, schedule points, eval, checkpoints.
 
 Port of ``aldi_tpu/engine/trainer.py:38-331`` (the reference's
-``ALDITrainer``, ``aldi/trainer.py:140-246``) on one device. The hook
-system collapses into explicit schedule points in one loop:
+``ALDITrainer``, ``aldi/trainer.py:140-246``), on one device or data
+parallel over a process group, one rank per GPU. The hook system
+collapses into explicit schedule points in one loop:
 
 - the EMA update inside the step (``engine/train_step.py``);
 - metrics written every ``WRITE_PERIOD`` iterations and at the first:
@@ -17,16 +18,24 @@ system collapses into explicit schedule points in one loop:
   ``torch.profiler``.
 
 ``MODEL.DEVICE`` picks the device: ``cpu`` is the CPU; anything else
-(``cuda``, or the YAMLs' ``tpu``) is the card, and raises without one.
-Iteration ``it`` makes all its random draws (``draws``) from a
-``torch.Generator`` on that device seeded from (SEED, it), as the JAX
-trainer folds ``it`` into its key, so a resumed run draws what an
-unbroken one would. The data stream is a function of (SEED, it) too
-(``data/loader.py``).
+(``cuda``, or the YAMLs' ``tpu``) is the card ``cuda:LOCAL_RANK``, and
+raises without one. Iteration ``it`` makes all its random draws
+(``draws``) from a ``torch.Generator`` on that device seeded from (SEED,
+it), as the JAX trainer folds ``it`` into its key, so a resumed run draws
+what an unbroken one would. The data stream is a function of (SEED, it)
+too (``data/loader.py``).
 
-Multi-device training (the JAX package's mesh, ``TPU.MESH_*`` and
-``TPU.FSDP``) is not ported: ROADMAP.md lists it under multi-GPU data
-parallel.
+Data parallelism (``parallel/mesh.py``): the trainer uses the process
+group its caller made (``tools/train_net.py`` spawns one rank per GPU) or
+joins the one ``torchrun``'s environment describes. SOLVER.IMS_PER_BATCH
+stays the global batch (rescaled to the group's size by
+SOLVER.REFERENCE_WORLD_SIZE, as the JAX trainer rescales to its data
+axis); each rank loads, draws and steps on its share of it, and the step
+sums the gradients. The metrics are summed across the ranks at the write
+points only; rank 0 writes ``metrics.json``, the checkpoints and
+``trainer_state.json``, and every rank waits for the write. Evaluation
+shards the test set and gathers the predictions. The JAX package's
+``TPU.MESH_MODEL`` and ``TPU.FSDP`` raise: ROADMAP.md queues them.
 """
 
 import os
@@ -39,14 +48,14 @@ from .. import resolve_device
 from ..data import datasets  # noqa: F401  (dataset registrations)
 from ..data.loader import DevicePrefetcher, WeakStrongLoader
 from ..models import build_detector
+from ..parallel import mesh
 from ..utils.events import EventStorage, build_writers, setup_logger
 from .checkpoint import Checkpointer
 from .evaluator import inference_on_dataset
-from .train_step import create_train_state, draw_step, make_train_step
+from .train_step import (create_train_state, draw_step, grad_accum,
+                         make_train_step)
 
 WRITE_PERIOD = 20
-_MULTI_DEVICE = ("is not ported yet: ROADMAP.md lists it under multi-GPU "
-                 "data parallel")
 
 
 def auto_scale_workers(cfg, world_size: int):
@@ -72,25 +81,12 @@ def auto_scale_workers(cfg, world_size: int):
     return cfg
 
 
-def check_single_device(cfg):
-    """Raise on the JAX package's multi-device settings."""
-    t = cfg.TPU
-    if t.MESH_DATA not in (0, 1) or t.MESH_MODEL != 1 or t.FSDP:
-        raise NotImplementedError(
-            f"TPU.MESH_DATA={t.MESH_DATA}, TPU.MESH_MODEL={t.MESH_MODEL}, "
-            f"TPU.FSDP={t.FSDP}: training on more than one device "
-            + _MULTI_DEVICE)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={os.environ['WORLD_SIZE']}: multi-process training "
-            + _MULTI_DEVICE)
-
-
 def trainer_device(cfg, device=None) -> torch.device:
     """``device`` if given, else MODEL.DEVICE: ``cpu`` is the CPU, anything
-    else the card (raises without one)."""
+    else the rank's card ``cuda:LOCAL_RANK`` (raises without one)."""
     if device is None:
-        device = "cpu" if str(cfg.MODEL.DEVICE).lower() == "cpu" else "cuda"
+        device = ("cpu" if str(cfg.MODEL.DEVICE).lower() == "cpu"
+                  else f"cuda:{mesh.local_rank()}")
     return resolve_device(device)
 
 
@@ -102,10 +98,13 @@ def _to_device(batch, device):
 
 class ALDITrainer:
     def __init__(self, cfg, device=None):
-        self.logger = setup_logger(cfg.OUTPUT_DIR)
-        check_single_device(cfg)
         self.device = trainer_device(cfg, device)
-        cfg = auto_scale_workers(cfg, 1)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        mesh.init_from_env(self.device.type)
+        self.logger = setup_logger(cfg.OUTPUT_DIR)
+        mesh.check_data_parallel(cfg)
+        cfg = auto_scale_workers(cfg, mesh.world())
         if not cfg.is_frozen():
             cfg.freeze()
         self.cfg = cfg
@@ -138,19 +137,25 @@ class ALDITrainer:
     # -------------------------------------------------------------- draws
     def draws(self, it: int, batch: dict) -> dict:
         """Every random draw of iteration ``it``, from a generator on the
-        trainer's device seeded from (SEED, it)."""
+        trainer's device seeded from (SEED, it): the global batch's, of
+        which a rank keeps its share (``shard_draws``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed((self.seed << 32) + it)
         n_l = batch["labeled"]["image"].shape[0] if "labeled" in batch else 0
-        return draw_step(gen, self.detector, n_l,
-                         batch["unlabeled"]["image"].shape[0])
+        n_u = batch["unlabeled"]["image"].shape[0]
+        return mesh.shard_draws(
+            draw_step(gen, self.detector, mesh.global_batch(n_l),
+                      mesh.global_batch(n_u)), grad_accum(self.cfg))
 
     # --------------------------------------------------------------- train
     def train(self):
         cfg = self.cfg
         if self.loader is None:
             self.loader = WeakStrongLoader(
-                cfg, self.detector.canvas, seed=int(self.seed))
+                cfg, self.detector.canvas, seed=int(self.seed),
+                shard=(mesh.rank(), mesh.world()))
+        # every rank starts from rank 0's weights
+        mesh.broadcast_state(self.state.student, self.state.teacher)
         start = self.state.step
         # exact resume: continue the deterministic (seed, batch index)
         # stream where the saved run stopped; unconditional, since the
@@ -192,7 +197,8 @@ class ALDITrainer:
         for it in range(start, max_iter):
             batch = next(batches)
             data_time = time.time() - data_t0
-            if cfg.TPU.PROFILE_DIR:  # trace a 3-iteration window
+            if cfg.TPU.PROFILE_DIR and mesh.is_main():
+                # trace a 3-iteration window
                 if it == start + 10:
                     profiler = torch.profiler.profile()
                     profiler.start()
@@ -205,12 +211,14 @@ class ALDITrainer:
             dispatch_time = time.time() - t_disp
             win_iters += 1
 
-            if cfg.VIS_PERIOD and (it + 1) % cfg.VIS_PERIOD == 0:
+            if (cfg.VIS_PERIOD and (it + 1) % cfg.VIS_PERIOD == 0
+                    and mesh.is_main()):
                 self._visualize(batch, it + 1)
 
             self.storage.iter = it + 1
             if (it + 1) % WRITE_PERIOD == 0 or it == start:
-                host_metrics = {k: float(v) for k, v in metrics.items()}
+                host_metrics = {k: float(v) for k, v in
+                                mesh.reduce_metrics(metrics).items()}
                 elapsed = time.time() - win_t0
                 host_metrics["images_per_sec"] = (
                     cfg.SOLVER.IMS_PER_BATCH * win_iters / max(elapsed, 1e-9)

@@ -28,7 +28,11 @@ decoder: self-attention, cross-attention, FFN hidden, FFN output) from a
 seed, the layer's index), made inside the layer's forward, so a step is a
 function of its draws and an activation-checkpointed layer's recompute
 makes the same masks. The masks are drawn as the layer runs, never all at
-once. JAX's masks come from ``jax.random`` and are not reproduced.
+once. JAX's masks come from ``jax.random`` and are not reproduced. Under
+data parallelism a rank of W draws the masks of the whole chunk, W times
+its images, and keeps its own rows (``parallel/mesh.py`` ``shard_draws``
+puts (rank, W) beside the seed), so its images get the bits they get at
+world 1.
 """
 
 import math
@@ -46,6 +50,7 @@ from ..ops.lapjv import lapjv
 from ..ops.losses import sigmoid_focal
 from ..ops.ms_deform_attn import ms_deform_attn_core
 from ..ops.nms import top_k
+from ..parallel.mesh import global_batch, global_count
 from .layers import DenseConv2d, DenseLinear, Linear, lecun_normal
 from .resnet import TorchvisionResNet
 
@@ -148,11 +153,17 @@ class _Table(nn.Module):
 class _Dropout:
     """One layer's dropout at ``rate``: flax's ``where(mask, x / keep, 0)``
     with keep masks drawn in call order from a generator seeded from
-    (``seed``, ``layer``); the identity when ``seed`` is None."""
+    (``seed``, ``layer``); the identity when ``seed`` is None. ``seed`` is
+    an int, or (seed, rank, world) under data parallelism: the masks are
+    then drawn for ``world`` times the batch's rows and ``rank``'s rows
+    kept."""
 
     def __init__(self, rate, seed, layer, device):
         self.keep = 1.0 - rate
         self.gen = None
+        self.rank, self.world = 0, 1
+        if isinstance(seed, tuple):
+            seed, self.rank, self.world = seed
         if seed is not None and rate > 0:
             self.gen = torch.Generator(device=device)
             self.gen.manual_seed((int(seed) * 1_000_003 + layer) % (1 << 63))
@@ -160,8 +171,10 @@ class _Dropout:
     def __call__(self, x):
         if self.gen is None:
             return x
-        mask = torch.rand(x.shape, generator=self.gen,
-                          device=x.device) < self.keep
+        b = x.shape[0]
+        mask = torch.rand((self.world * b,) + x.shape[1:], generator=self.gen,
+                          device=x.device)[self.rank * b:(self.rank + 1) * b]
+        mask = mask < self.keep
         return torch.where(mask, x / self.keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -548,7 +561,8 @@ class DeformableDETR(nn.Module):
 
     def forward(self, x, image_sizes, train=False, seed=None,
                 stage="full"):
-        """``seed`` (an int, training only): the dropout draws. ``stage``
+        """``seed`` (an int, or (seed, rank, world); training only): the
+        dropout draws (``_Dropout``). ``stage``
         "backbone" returns after the input projections and the flatten,
         "encoder" after the encoder (for timing by stage)."""
         seed = seed if train else None
@@ -782,12 +796,18 @@ class DETRDetector:
                       do_align=False, domain_label=1.0):
         """Training forward of ``module`` on images [B, H, W, 3] with ground
         truth ``gt`` (``Instances`` padded to MAX_GT); ``draws``:
-        ``{"dropout": seed}`` (no dropout without it). Returns (losses
-        ``loss_{ce,bbox,giou}[_i]`` and under two-stage ``*_enc``, aux)."""
+        ``{"dropout": seed}`` (no dropout without it), with
+        ``"dropout_rows"`` (rank, world) under data parallelism. Returns
+        (losses ``loss_{ce,bbox,giou}[_i]`` and under two-stage ``*_enc``,
+        aux). ``num_boxes`` is the global batch's (``global_count``, an
+        all-reduce: every rank makes the call, in the same order,
+        ``parallel/mesh.py``)."""
         seed = draws.get("dropout") if draws else None
+        if seed is not None and "dropout_rows" in draws:
+            seed = (seed, *draws["dropout_rows"])
         out = self._fwd(module, images, image_sizes, True, seed)
         gt_n = self._normalize_gt(gt, image_sizes)
-        num_boxes = gt.valid.sum().float().clamp(min=1.0)
+        num_boxes = global_count(gt.valid.sum().float()).clamp(min=1.0)
         n_layers = out["logits"].shape[0]
         lg = out["logits"] if self.aux_loss else out["logits"][-1:]
         bx = out["boxes"] if self.aux_loss else out["boxes"][-1:]
@@ -829,7 +849,7 @@ class DETRDetector:
         pseudo = detections_to_pseudo_labels(*dets, threshold=threshold,
                                              max_gt=max_gt)
         metrics = {"num_pseudo_labels": pseudo.valid.sum().to(torch.float32)
-                   / max(images.shape[0], 1)}
+                   / global_batch(max(images.shape[0], 1))}
         return {}, pseudo, metrics
 
     def distill_losses(self, teacher, ctx, s_aux):

@@ -31,6 +31,7 @@ from .. import resolve_device
 from ..config import compute_dtype, resolve_canvas
 from ..ops.anchors import AnchorGenerator
 from ..ops.losses import bce_with_logits
+from ..parallel.mesh import batch_mean, global_batch
 from .convnext import ConvNeXt
 from .fpn import FPN
 from .layers import DenseConv2d, DenseLinear
@@ -378,21 +379,22 @@ class RCNNDetector:
         the gradient reversal, times their weights: the image level on the
         pyramid level IMG_DA_LAYER, the instance level on the box head's
         features [B, S, D], its mean over all B x S sampled slots (the
-        invalid ones included, as the JAX package takes it)."""
+        invalid ones included, as the JAX package takes it). Each mean is
+        the global batch's (``batch_mean``)."""
         a = self.cfg.DOMAIN_ADAPT.ALIGN
         module = module or self.module
         out = {}
         if a.IMG_DA_ENABLED:
             f = grad_reverse(feats[ALIGN_LEVELS[a.IMG_DA_LAYER]])
             preds = module.img_align(f).to(torch.float32)
-            out["loss_da_img"] = a.IMG_DA_WEIGHT * bce_with_logits(
-                preds, torch.full_like(preds, domain_label)).mean()
+            out["loss_da_img"] = a.IMG_DA_WEIGHT * batch_mean(
+                bce_with_logits(preds, torch.full_like(preds, domain_label)))
         if a.INS_DA_ENABLED:
             b, s = box_feats.shape[:2]
             preds = module.ins_align(grad_reverse(box_feats).reshape(
                 b * s, -1)).reshape(b, s).to(torch.float32)
-            out["loss_da_ins"] = a.INS_DA_WEIGHT * bce_with_logits(
-                preds, torch.full_like(preds, domain_label)).mean()
+            out["loss_da_ins"] = a.INS_DA_WEIGHT * batch_mean(
+                bce_with_logits(preds, torch.full_like(preds, domain_label)))
         return out
 
     def forward_domain_align(self, module, images, image_sizes, draws,
@@ -472,7 +474,7 @@ class RCNNDetector:
                 t_delta=torch.gather(rpn_deltas, 1,
                                      idx[..., None].expand(-1, -1, 4)))
         metrics = {"num_pseudo_labels": pseudo.valid.sum().to(torch.float32)
-                   / max(images.shape[0], 1)}
+                   / global_batch(max(images.shape[0], 1))}
         return ctx, pseudo, metrics
 
     def distill_losses(self, teacher, ctx, s_aux):

@@ -16,6 +16,7 @@ from ..ops.losses import smooth_l1, softmax_cross_entropy
 from ..ops.matcher import match, sample_fixed_indices, subsample_labels
 from ..ops.nms import batched_nms_keep_mask, top_k
 from ..ops.roi_align import roi_align_batched
+from ..parallel.mesh import global_count
 from .layers import Conv2d, ConvNorm, Linear
 
 
@@ -142,10 +143,12 @@ def fast_rcnn_losses(
 ) -> dict:
     """Substrate ``FastRCNNOutputLayers.losses``: softmax CE averaged over
     the sampled proposals; smooth-L1 on the gt-class deltas of foreground
-    proposals, normalized by the number of sampled proposals."""
+    proposals, normalized by the number of sampled proposals (the global
+    batch's under data parallelism: ``global_count``, an all-reduce that
+    every rank makes, in the same order, ``parallel/mesh.py``)."""
     valid = sampled["valid"]
     classes = sampled["classes"]
-    n_valid = valid.sum().clamp(min=1)
+    n_valid = global_count(valid.sum()).clamp(min=1)
     ce = softmax_cross_entropy(cls_logits.to(torch.float32), classes)
     loss_cls = (ce * valid).sum() / n_valid
     fg = valid & (classes < num_classes)

@@ -19,6 +19,7 @@ from ..ops.losses import bce_with_logits, smooth_l1
 from ..ops.match_kernel import match_boxes
 from ..ops.matcher import subsample_indices
 from ..ops.nms import nms_keep_mask, top_k, top_k_by_score
+from ..parallel.mesh import global_batch
 from .layers import Conv2d
 
 
@@ -99,11 +100,12 @@ def rpn_losses(
 ) -> dict:
     """Substrate RPN losses on the K sampled anchors: objectness BCE over the
     sampled set and smooth-L1 delta regression over its positives, each
-    normalized by B * batch_size_per_image."""
+    normalized by B * batch_size_per_image, B the global batch's images
+    (a rank's share under data parallelism)."""
     idx, valid, is_pos, matched_gt = label_anchors_sampled(
         anchors, gt_boxes, gt_valid, draws, batch_size_per_image,
         positive_fraction)
-    normalizer = logits.shape[0] * batch_size_per_image
+    normalizer = global_batch(logits.shape[0]) * batch_size_per_image
     lg = torch.gather(logits, 1, idx).to(torch.float32)
     obj = bce_with_logits(lg, is_pos.to(torch.float32))
     loss_cls = (obj * valid).sum() / normalizer

@@ -37,6 +37,7 @@ from ..config import compute_dtype, resolve_canvas
 from ..ops.boxes import clip_boxes
 from ..ops.losses import bce_with_logits, softmax_cross_entropy
 from ..ops.nms import batched_nms_keep_mask, top_k
+from ..parallel.mesh import batch_mean, global_batch, global_count, world
 from .layers import DenseConv2d
 from .rcnn import ConvDiscriminator, grad_reverse
 
@@ -72,19 +73,37 @@ class _BatchNormTrain(torch.autograd.Function):
     float32 batch statistics (``var = max(E[x^2] - E[x]^2, 0)``), ``y =
     (x - mean) * (rsqrt(var + eps) * weight) + bias`` cast to ``x``'s
     dtype. Returns (y, mean, var); the backward is the batch-statistics
-    gradient in float32, keeping only ``x`` for it."""
+    gradient in float32, keeping only ``x`` for it.
+
+    Under data parallelism the statistics are the global batch's, as
+    under the JAX package's sharded mesh (sync-BN): the forward all-reduces
+    the per-channel sum, sum of squares and count, the backward its two
+    per-channel sums (of dy and dy * xhat). The weight's and the bias's
+    gradients stay the rank's own sums: the step's gradient all-reduce
+    adds them up. Every rank runs the same BatchNorms in the same order,
+    so the collectives pair up."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         dims = (0, 2, 3)
         xf = x.float()
-        mean = xf.mean(dims)
-        var = (xf.square().mean(dims) - mean.square()).clamp(min=0.0)
+        c = x.shape[1]
+        if world() == 1:
+            n = x.numel() // c
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp(min=0.0)
+        else:
+            stats = global_count(torch.cat([
+                xf.sum(dims), xf.square().sum(dims),
+                xf.new_full((1,), x.numel() // c)]))
+            n = stats[-1]
+            mean = stats[:c] / n
+            var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)
         mul = torch.rsqrt(var + eps) * weight
         y = ((xf - mean[:, None, None]) * mul[:, None, None]
              + bias[:, None, None]).to(x.dtype)
         ctx.save_for_backward(x, weight, mean, var)
-        ctx.eps = eps
+        ctx.eps, ctx.n = eps, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -92,15 +111,19 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, gy, _gmean, _gvar):
         x, weight, mean, var = ctx.saved_tensors
         dims = (0, 2, 3)
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         g = gy.float()
         invstd = torch.rsqrt(var + ctx.eps)
         xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
         gbias = g.sum(dims)
         gweight = (g * xhat).sum(dims)
+        sums_b, sums_w = gbias, gweight
+        if world() > 1:
+            sums_b, sums_w = global_count(
+                torch.cat([gbias, gweight])).split(x.shape[1])
         gx = (weight * invstd)[:, None, None] * (
-            g - (gbias / n)[:, None, None]
-            - xhat * (gweight / n)[:, None, None])
+            g - (sums_b / n)[:, None, None]
+            - xhat * (sums_w / n)[:, None, None])
         return gx.to(x.dtype), gweight, gbias, None
 
 
@@ -362,7 +385,9 @@ def yolo_losses(preds, targets, num_classes, box_gain, obj_gain, cls_gain,
     the valid candidates, objectness BCE against the detached, clipped IoU
     scatter-maxed into the dense grid (duplicate (cell, anchor) candidates
     keep their largest IoU), per-level ``BALANCE``, and one-hot BCE
-    classification when there is more than one class."""
+    classification when there is more than one class. The candidates'
+    counts are the global batch's (``global_count``, an all-reduce:
+    every rank makes the call, in the same order, ``parallel/mesh.py``)."""
     dev = preds[0].device
     lbox = lobj = lcls = torch.zeros((), device=dev)
     cp, cn = 1.0 - 0.5 * label_smoothing, 0.5 * label_smoothing
@@ -373,20 +398,22 @@ def yolo_losses(preds, targets, num_classes, box_gain, obj_gain, cls_gain,
         iou = ciou(torch.cat([pxy, pwh], -1),
                    torch.cat([t["txy"], t["twh"]], -1))
         vf = t["valid"].float()
-        lbox = lbox + ((1.0 - iou) * vf).sum() / vf.sum().clamp(min=1.0)
+        lbox = lbox + ((1.0 - iou) * vf).sum() / global_count(
+            vf.sum()).clamp(min=1.0)
 
         # every value is >= 0, so amax over zeros is the JAX .at[].max()
         iou_det = iou.detach().clamp(min=0.0) * vf
         tobj = torch.zeros(pi.shape[:4].numel(), device=dev).scatter_reduce_(
             0, flat.reshape(-1), iou_det.reshape(-1), "amax")
-        lobj = lobj + bal * bce_with_logits(
-            pi[..., 4], tobj.reshape(pi.shape[:4])).mean()
+        lobj = lobj + bal * batch_mean(bce_with_logits(
+            pi[..., 4], tobj.reshape(pi.shape[:4])))
 
         if num_classes > 1:
             tcls = _one_hot(t["classes"], num_classes) * (cp - cn) + cn
             ce = bce_with_logits(ps[..., 5:], tcls).sum(-1)
             lcls = lcls + (ce * vf).sum() / (
-                vf.sum() * num_classes).clamp(min=1.0) * num_classes
+                global_count(vf.sum()) * num_classes).clamp(
+                    min=1.0) * num_classes
     return {"loss_box": box_gain * lbox, "loss_obj": obj_gain * lobj,
             "loss_cls": cls_gain * lcls}
 
@@ -525,8 +552,8 @@ class YoloDetector:
         f = grad_reverse(neck[ALIGN_LEVELS[self.align_level]])
         preds = (module or self.module).img_align(
             f.permute(0, 2, 3, 1)).to(torch.float32)
-        return {"loss_da_img": a.IMG_DA_WEIGHT * bce_with_logits(
-            preds, torch.full_like(preds, domain_label)).mean()}
+        return {"loss_da_img": a.IMG_DA_WEIGHT * batch_mean(bce_with_logits(
+            preds, torch.full_like(preds, domain_label)))}
 
     def forward_domain_align(self, module, images, image_sizes, draws=None,
                              domain_label=0.0):
@@ -553,7 +580,7 @@ class YoloDetector:
         pseudo = detections_to_pseudo_labels(*dets, threshold=threshold,
                                              max_gt=max_gt)
         metrics = {"num_pseudo_labels": pseudo.valid.sum().to(torch.float32)
-                   / max(images.shape[0], 1)}
+                   / global_batch(max(images.shape[0], 1))}
         return {"head_outputs": preds, "pseudo_gt": pseudo}, pseudo, metrics
 
     def distill_losses(self, teacher, ctx, s_aux):
@@ -561,7 +588,9 @@ class YoloDetector:
         objectness BCE against sigmoid(teacher obj / OBJ_TMP) per level
         times ``BALANCE`` and the objectness gain; classification CE against
         softmax(teacher cls / CLS_TMP) at the pseudo-labels' candidate
-        cells; regression = the student's box loss on the pseudo-labels."""
+        cells; regression = the student's box loss on the pseudo-labels.
+        The counts are the global batch's (``global_count``, an all-reduce:
+        every rank makes the call, in the same order, ``parallel/mesh.py``)."""
         d = self.cfg.DOMAIN_ADAPT.DISTILL
         s_preds = s_aux["head_outputs"]
         t_preds = [p.detach() for p in ctx["head_outputs"]]
@@ -574,8 +603,8 @@ class YoloDetector:
         for i, (ps_l, pt_l) in enumerate(zip(s_preds, t_preds)):
             if d.OBJ_ENABLED:
                 t_probs = torch.sigmoid(pt_l[..., 4] / d.OBJ_TMP)
-                lobj = lobj + bce_with_logits(
-                    ps_l[..., 4], t_probs).mean() * BALANCE[i]
+                lobj = lobj + batch_mean(bce_with_logits(
+                    ps_l[..., 4], t_probs)) * BALANCE[i]
             if d.ROIH_CLS_ENABLED and self.num_classes > 1:
                 t = targets[i]
                 ps = _gather_cells(ps_l, t)[0][..., 5:].reshape(
@@ -585,7 +614,8 @@ class YoloDetector:
                 ce = softmax_cross_entropy(
                     ps, torch.softmax(ts / d.CLS_TMP, dim=-1))
                 vf = t["valid"].reshape(-1).float()
-                lcls = lcls + (ce * vf).sum() / vf.sum().clamp(min=1.0)
+                lcls = lcls + (ce * vf).sum() / global_count(
+                    vf.sum()).clamp(min=1.0)
         out = {}
         if d.OBJ_ENABLED:
             out["loss_soft_obj"] = lobj * self.loss_gains["obj_gain"]

@@ -79,7 +79,10 @@ def giou_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor,
-                eps: float = 1e-8) -> torch.Tensor:
-    """Mean of ``values`` where ``mask``; safe when the mask is empty."""
+                eps: float = 1e-8, count=None) -> torch.Tensor:
+    """Mean of ``values`` where ``mask``; safe when the mask is empty.
+    ``count``: the denominator, by default the mask's own count (a
+    data-parallel caller passes the global batch's)."""
     mask = mask.to(values.dtype)
-    return (values * mask).sum() / mask.sum().clamp(min=eps)
+    count = mask.sum() if count is None else count
+    return (values * mask).sum() / count.clamp(min=eps)

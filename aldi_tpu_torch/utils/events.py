@@ -4,6 +4,8 @@ A copy of ``aldi_tpu/utils/events.py``: ``EventStorage`` and the JSON
 (``metrics.json``), terminal and TensorBoard writers the trainer installs.
 TensorBoard is optional (gated on the import of
 ``torch.utils.tensorboard``). The logger is named ``aldi_tpu_torch``.
+Under data parallelism only rank 0 writes: the other ranks get no
+writer and a logger of warnings, without a file.
 """
 
 import json
@@ -12,6 +14,8 @@ import os
 import time
 from collections import defaultdict, deque
 from typing import Dict
+
+from ..parallel.mesh import is_main
 
 
 class EventStorage:
@@ -99,6 +103,8 @@ class TensorBoardWriter:
 
 
 def build_writers(output_dir: str, max_iter: int, logger=None):
+    if not is_main():
+        return []
     writers = [
         JSONWriter(os.path.join(output_dir, "metrics.json")),
         TerminalWriter(max_iter, logger),
@@ -116,14 +122,14 @@ def setup_logger(output_dir: str = None, name: str = "aldi_tpu_torch"):
     logger = logging.getLogger(name)
     if logger.handlers:
         return logger
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if is_main() else logging.WARNING)
     fmt = logging.Formatter(
         "[%(asctime)s %(name)s]: %(message)s", datefmt="%m/%d %H:%M:%S"
     )
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
     logger.addHandler(sh)
-    if output_dir:
+    if output_dir and is_main():
         os.makedirs(output_dir, exist_ok=True)
         fh = logging.FileHandler(os.path.join(output_dir, "log.txt"))
         fh.setFormatter(fmt)

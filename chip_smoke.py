@@ -110,7 +110,39 @@ failure exits non-zero:
    and K1a/K1b held against their plain versions and timed at each of
    the first run's first step's own launches (24 + 24 images: their real
    boxes, levels, anchors and gt), as in the training phase.
-7. YOLO phase, YOLOv5-m of ``configs/cityscapes/ALDI-Yolo-Cityscapes.yaml``
+7. Data-parallel phase (``aldi_tpu_torch/parallel/mesh.py``): the
+   flagship's DAOD step (4 + 4 images of 1024x2048, bf16) without a process
+   group and then with a world-1 NCCL group, bitwise equal (losses and
+   parameters after 3 steps), both timed, and the gradient all-reduce
+   timed on that group with its bytes. Then what every rank's draws of
+   the global batch cost at world 2 against its rows drawn alone
+   (``dp_draw_cost``: R50-FPN's ``draw_step`` at the published 24 + 24,
+   DETR's step on 8 + 8 of the published 16 + 16 chunk with its dropout
+   draws counted; times and peak memory). Then world 2 on this one card:
+   two spawned processes (``mesh.spawn``) in a gloo group (NCCL refuses
+   two ranks on one device), each stepping on its 2 + 2 images of the
+   same global 4 + 4 (``shard_batch``, ``shard_draws``), float32
+   (TPU.COMPUTE_DTYPE), 2 steps of the flagship and 1 of YOLOv5-m
+   (TEACHER.THRESHOLD 0): the ranks' summed losses and their parameters
+   against the world-1 steps in this process (tolerances
+   ``DP_LOSS_RTOL``, ``DP_PARAM_ATOL``, ``DP_STATS_RTOL``; world 1's
+   largest move per step at least ``DP_MOVE_FACTOR`` x
+   ``DP_PARAM_ATOL``), the two ranks' parameters and YOLO's BatchNorm
+   running statistics bitwise equal, each rank's K1a/K1b 3 and K2 forward
+   4 and backward 2 launches per step; then the flagship's 2 steps again
+   under each of ``DP_FAULTS`` (gradients averaged instead of summed,
+   rank-local denominators), each of which its limit must catch. Last,
+   ``ALDITrainer`` at world 2 on the card (two gloo ranks, the flagship
+   at 4 + 4 images, synthetic COCO splits of 2048x1024 PNGs: train 8,
+   unlabeled 8, val 16 whose boxes are the reference ``.pth``'s own
+   detections above 0.5, so that the AP is far above 0): 2 iterations
+   with a checkpoint and an eval at 2; rank
+   0 alone wrote the files (one ``metrics.json`` line), and this process
+   resumes the checkpoint at world 1 and scores the same AP. Any rank that
+   fails, or a group not done in ``DP_TIMEOUT_S``, fails the run; the
+   phase prints its seconds. The world-2 times come from two processes on
+   one card: a check of correctness, not a multi-GPU speed.
+8. YOLO phase, YOLOv5-m of ``configs/cityscapes/ALDI-Yolo-Cityscapes.yaml``
    (depth 0.67, width 0.75, 8 classes, bfloat16, ``seeded_weights``),
    whose paths launch none of the six kernels (asserted on each path):
    serving (1 warm-up + 3 timed requests of 8 images of 1024x2048, a
@@ -126,7 +158,7 @@ failure exits non-zero:
    or that it does not fit); the artifact as in phase 4 (bitwise equal to
    eager, no kernel op in the graph); and a tiny float32 YOLOv5-n DAOD step
    on the card against the same step on the CPU.
-8. Deformable DETR phase, ``configs/cityscapes/ALDI-Best-DETR-Cityscapes
+9. Deformable DETR phase, ``configs/cityscapes/ALDI-Best-DETR-Cityscapes
    .yaml`` (R50, 4 levels, 6 + 6 layers, d_model 256, 8 heads, 4 points,
    300 queries, 8 classes, 800x1344, float32, ``seeded_weights``), whose
    only kernel is K4, the Hungarian criterion's assignment solver: first,
@@ -148,7 +180,7 @@ failure exits non-zero:
    scipy's times; the artifact as in phase 4 (no kernel op in the graph);
    and a tiny float32 DETR, the shipped variant and WITH_BOX_REFINE +
    TWO_STAGE, on the card against the CPU (a request and one DAOD step).
-9. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
+10. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
    line (the six kernels and K4) and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -2484,6 +2516,610 @@ def trainer_phase(card, kernels):
 
 
 # ---------------------------------------------------------------- YOLOv5
+# ---------------------------------------------------------------- data parallel
+DP_WORLD = 2  # ranks of the world-2 checks, two processes on this one card
+DP_TIMEOUT_S = 420  # a group that has not finished by then fails the run
+# world 2 (float32, TF32 off, two processes) against world 1: the ranks'
+# partial sums and the convolutions over 2 images instead of 4 sum in
+# another order; the second step's sampled ROIs and matches move with
+# those last bits. Sound readings, NVIDIA H100 80GB HBM3 at 700 W, in four
+# runs: R50-FPN's worst summed loss 2.26e-4 relative at step 1 and
+# 7.8e-4-1.41e-3 at step 2, its parameters 3.5e-5-4.2e-5 after 2 steps,
+# while world 1's student moves by up to 1.14e-3 and 1.49e-3 per step;
+# YOLOv5-m's losses 1.21e-4, parameters 1.19e-7, running statistics
+# 6.34e-7 of their scale. ``DP_FAULTS`` are planted in the same run, and
+# each must exceed its limit.
+DP_LOSS_RTOL = 5e-3
+DP_PARAM_ATOL = 1e-4
+DP_STATS_RTOL = 1e-3  # YOLO's running statistics, of each tensor's scale
+DP_MOVE_FACTOR = 10  # world 1's largest move per step >= this x DP_PARAM_ATOL
+# fault planted at world 2 -> the limit that must catch it
+DP_FAULTS = {"averaged gradients": "parameters",
+             "rank-local denominators": "losses"}
+DP_FLOAT32 = {"TPU.COMPUTE_DTYPE": "float32"}
+DP_YOLO = {"DOMAIN_ADAPT.TEACHER.THRESHOLD": 0.0}  # as the YOLO phase
+
+
+def dp_spawn(fn, args, world=DP_WORLD):
+    """``fn(rank, world, *args)`` in ``world`` processes that share this
+    card (``mesh.spawn``), joined in a gloo group (NCCL refuses two ranks
+    on one device): their results in rank order. A rank that fails, or a
+    group not done within ``DP_TIMEOUT_S``, fails the run; every process
+    is stopped."""
+    import tempfile
+
+    from aldi_tpu_torch.parallel import mesh
+
+    with tempfile.TemporaryDirectory(prefix="aldi_smoke_dp_") as tmp:
+        try:
+            return mesh.spawn(fn, world, f"file://{tmp}/store", *args,
+                              device_type="cuda", backend="gloo",
+                              timeout=DP_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"data parallel: {fn.__name__}: {e}")
+
+
+class dp_fault:
+    """A fault of ``DP_FAULTS`` planted in this rank's step while in the
+    block, to show that the world-2 limits catch it: "averaged gradients"
+    divides the summed gradients by W (what averaging, DDP's rule, would
+    do to losses that already carry the global denominators), "rank-local
+    denominators" gives every R-CNN loss its rank's own count."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from aldi_tpu_torch.engine import distill, train_step
+        from aldi_tpu_torch.models import roi_heads, rpn
+        from aldi_tpu_torch.parallel import mesh
+
+        def averaged(params):
+            nbytes = mesh.all_reduce_grads(params)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(mesh.world())
+            return nbytes
+
+        if self.name == "averaged gradients":
+            self.patches = [(train_step, "all_reduce_grads", averaged)]
+        else:
+            self.patches = [(roi_heads, "global_count", lambda x: x),
+                            (distill, "global_count", lambda x: x),
+                            (rpn, "global_batch", lambda n: n)]
+        self.saved = [(m, k, getattr(m, k)) for m, k, _ in self.patches]
+        for m, k, f in self.patches:
+            setattr(m, k, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, k, f in self.saved:
+            setattr(m, k, f)
+
+
+def dp_steps(rank, world, config, overrides, n_steps, seed,
+             keep_teacher=True):
+    """``n_steps`` DAOD steps of ``config`` at full width on a rank's share
+    (``shard_batch``, ``shard_draws``) of global batches of TRAIN_IMAGES +
+    TRAIN_IMAGES images and their draws, made on the card from ``seed`` on
+    every rank alike; ``seeded_weights``; TF32 off for cuDNN and matrix
+    products, so that float32 differs between world sizes only by the
+    order of its sums (TF32 convolution algorithms chosen by batch size
+    round differently). Returns per step the rank's metrics, the steps' ms
+    and the student's largest move (``moves``: of any parameter element),
+    the kernels' launches in the ``n_steps`` steps, and the student's and
+    (with ``keep_teacher``) the teacher's state dicts on the CPU."""
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.ops.match_kernel import low_quality_mask, match_iou
+    from aldi_tpu_torch.ops.roi_align_kernel import (roi_align_bwd,
+                                                     roi_align_fwd)
+    from aldi_tpu_torch.parallel.mesh import shard_batch, shard_draws
+
+    cfg = config_of(config, overrides)
+    cfg.SOLVER.IMS_PER_BATCH = 2 * TRAIN_IMAGES
+    det = build_detector(cfg)
+    state = create_train_state(cfg, det, seeded_weights(det, seed=0))
+    step = make_train_step(cfg, det)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
+                                     det.num_classes, TRAIN_IMAGES)
+               for _ in range(n_steps)]
+    draws = [draw_step(gen, det, TRAIN_IMAGES, TRAIN_IMAGES)
+             for _ in range(n_steps)]
+    kernels = (match_iou, low_quality_mask, roi_align_fwd, roi_align_bwd)
+    for k in kernels:
+        k.launches = 0
+    metrics, times, moves = [], [], []
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for b, d in zip(batches, draws):
+            before = params_of(state.student)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, shard_batch(b, 1, rank, world),
+                            shard_draws(d, 1, rank, world))
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            after = dict(state.student.named_parameters())
+            moves.append(float(torch.stack([
+                (after[k].detach() - v).abs().max()
+                for k, v in before.items()]).max()))
+            del before, after
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    out = {"metrics": metrics, "ms": times, "moves": moves,
+           "launches": {k.name: k.launches for k in kernels},
+           "student": {k: v.detach().cpu()
+                       for k, v in state.student.state_dict().items()}}
+    if keep_teacher:
+        out["teacher"] = {k: v.detach().cpu()
+                          for k, v in state.teacher.state_dict().items()}
+    return out
+
+
+def dp_steps_of_both(rank, world, n_steps):
+    """The flagship's 2 steps and YOLOv5-m's 1 step, float32, as
+    ``dp_steps``, then the flagship's steps again under each of
+    ``DP_FAULTS`` (one process start for all)."""
+    r50 = dp_steps(rank, world, FLAGSHIP, DP_FLOAT32, n_steps, 31)
+    yolo = dp_steps(rank, world, YOLO_ALDI, {**DP_FLOAT32, **DP_YOLO}, 1, 32)
+    faults = {}
+    for name in DP_FAULTS:
+        with dp_fault(name):
+            faults[name] = dp_steps(rank, world, FLAGSHIP, DP_FLOAT32,
+                                    n_steps, 31, keep_teacher=False)
+    return r50, yolo, faults
+
+
+def dp_errors(label, ranks, want):
+    """The ranks' summed metrics against world 1's (``want``), each step's
+    worst printed, and rank 0's student against world 1's: (the worst
+    relative loss error, the parameters' and the running statistics'
+    worst errors, the summed metrics)."""
+    got = [{k: sum(r["metrics"][i][k] for r in ranks)
+            for k in ranks[0]["metrics"][i]}
+           for i in range(len(want["metrics"]))]
+    errs = {(i + 1, k): abs(g[k] - w[k]) / max(abs(w[k]), 1e-3)
+            for i, (g, w) in enumerate(zip(got, want["metrics"])) for k in w}
+    loss_err = max(errs.values())
+    for i in range(len(got)):
+        worst = max((e, k) for (j, k), e in errs.items() if j == i + 1)[1]
+        print(f"[dp] {label}: the worst summed loss of step {i + 1}, "
+              f"{worst}: {got[i][worst]:.7g} against world 1's "
+              f"{want['metrics'][i][worst]:.7g} (relative "
+              f"{errs[(i + 1, worst)]:.3g})", flush=True)
+    s, w = ranks[0]["student"], want["student"]
+    stats = [k for k in w if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in w if k not in stats and w[k].is_floating_point()]
+    param_err = max(float((s[k] - w[k]).abs().max()) for k in params)
+    stats_err = max((float((s[k] - w[k]).abs().max())
+                     / max(float(w[k].abs().max()), 1e-12)
+                     for k in stats), default=0.0)
+    return loss_err, param_err, stats_err, got
+
+
+def dp_compare(label, ranks, want, per_step=None):
+    """The ranks' summed metrics and rank 0's student and teacher against
+    world 1's (``want``), the two ranks' states bitwise equal, and each
+    rank's kernel launches per step (``per_step``) in its steps. Returns
+    the worst errors and the summed metrics."""
+    import torch
+
+    loss_err, param_err, stats_err, got = dp_errors(label, ranks, want)
+    for part in ("student", "teacher"):
+        a, b = ranks[0][part], ranks[1][part]
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"data parallel {label}: the ranks' {part}s differ")
+    steps = len(want["metrics"])
+    for r, out in enumerate(ranks):
+        for name, n in (per_step or {}).items():
+            if out["launches"][name] != n * steps:
+                fail(f"data parallel {label}: rank {r} launched {name} "
+                     f"{out['launches'][name]} times in {steps} steps, "
+                     f"{n} per step expected")
+    return loss_err, param_err, stats_err, got
+
+
+def dp_world1_group(card):
+    """The flagship's DAOD step (4 + 4, bf16) without a group and with a
+    world-1 NCCL group: bitwise equal losses and parameters, both timed,
+    and the gradient all-reduce on that group timed with its bytes."""
+    import socket
+
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.parallel import mesh
+
+    cfg = config_of(FLAGSHIP)
+    cfg.SOLVER.IMS_PER_BATCH = 2 * TRAIN_IMAGES
+    det = build_detector(cfg)
+    weights = seeded_weights(det, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    n = 3  # a warm-up and 2 timed steps
+    batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
+                                     det.num_classes, TRAIN_IMAGES)
+               for _ in range(n)]
+    draws = [draw_step(gen, det, TRAIN_IMAGES, TRAIN_IMAGES)
+             for _ in range(n)]
+
+    def run():
+        state = create_train_state(cfg, det, weights)
+        step = make_train_step(cfg, det)
+        metrics, times = [], []
+        for b, d in zip(batches, draws):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b, d)
+            metrics.append({k: v.detach().clone() for k, v in m.items()})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return state, metrics, params_of(state.student), times[1:]
+
+    _, plain_m, plain_p, plain_ms = run()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh.init_process_group("cuda", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        state, group_m, group_p, group_ms = run()
+        same = (all(torch.equal(a[k], b[k]) for a, b in zip(plain_m, group_m)
+                    for k in a)
+                and all(torch.equal(plain_p[k], group_p[k])
+                        for k in plain_p))
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        buckets = mesh.grad_buckets(params)
+        nbytes = mesh.reduce_buckets(buckets)
+        reduce_ms = cuda_ms(lambda: mesh.reduce_buckets(buckets), 10)
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"[dp] R50-FPN DAOD step (4 + 4, bf16) with a world-1 {backend} "
+          f"group against no group: losses and parameters after {n} steps "
+          f"bitwise equal: {same}; step ms without {fmt(plain_ms)}, with "
+          f"{fmt(group_ms)}; the gradient all-reduce (skipped at world 1: "
+          f"timed here on the group) {nbytes / 2**20:.2f} MiB in "
+          f"{len(buckets)} buckets, {reduce_ms:.4f} ms per step; card "
+          f"{card}", flush=True)
+    if not same:
+        fail("the step with a world-1 group differs from the step without")
+    del state
+    return {"plain_ms": plain_ms, "group_ms": group_ms,
+            "reduce_ms": reduce_ms, "reduce_bytes": nbytes}
+
+
+def dp_trainer(rank, world, tmp, names, paths, weights):
+    """``ALDITrainer`` on this rank's share: the flagship for 2 iterations
+    of 4 + 4 images (bf16) with a checkpoint and an eval of the val split
+    at 2, on the card this process shares with the other rank."""
+    from aldi_tpu_torch.data.catalog import (DatasetCatalog,
+                                             register_coco_instances)
+    from aldi_tpu_torch.engine.trainer import ALDITrainer
+
+    for name, (json_path, image_dir) in zip(names, paths):
+        if name not in DatasetCatalog:
+            register_coco_instances(name, {}, json_path, image_dir)
+    trainer = ALDITrainer(dp_trainer_cfg(tmp, names, weights),
+                          device="cuda:0")
+    trainer.resume_or_load(resume=False)
+    return trainer.train()
+
+
+def dp_oracle_val(tmp, names, paths, weights):
+    """The val split's boxes rewritten as the reference weights' own
+    detections above 0.5 (their ``ema`` entry, bf16, on the card): the
+    trainer's eval of its EMA teacher, which 2 iterations at EMA.ALPHA
+    0.9996 leave near those weights, then scores an AP far above 0, which
+    a lost or doubled image of the gather would change."""
+    import torch
+
+    from aldi_tpu_torch.data.catalog import (DatasetCatalog,
+                                             register_coco_instances)
+    from aldi_tpu_torch.data.loader import TestLoader
+    from aldi_tpu_torch.engine.checkpoint import load_reference_weights
+    from aldi_tpu_torch.engine.train_step import create_train_state
+    from aldi_tpu_torch.models import build_detector
+
+    for name, (json_path, image_dir) in zip(names, paths):
+        if name not in DatasetCatalog:
+            register_coco_instances(name, {}, json_path, image_dir)
+    cfg = dp_trainer_cfg(tmp, names, weights)
+    det = build_detector(cfg)
+    load_reference_weights(create_train_state(cfg, det), weights)
+    json_path = paths[2][0]
+    with open(json_path) as f:
+        coco = json.load(f)
+    coco["annotations"] = []
+    for batch, metas in TestLoader(names[2], cfg, det.canvas):
+        out = det.forward_inference(torch.from_numpy(batch["image"]).cuda(),
+                                    torch.from_numpy(batch["sizes"]).cuda())
+        boxes, scores, classes, valid = (t.cpu() for t in out)
+        for i, meta in enumerate(metas):
+            keep = valid[i] & (scores[i] > 0.5)
+            for b, c in zip(boxes[i][keep], classes[i][keep]):
+                x0, y0, x1, y1 = (b.float() / meta["scale"]).tolist()
+                coco["annotations"].append({
+                    "id": len(coco["annotations"]) + 1,
+                    "image_id": meta["image_id"], "category_id": int(c) + 1,
+                    "bbox": [x0, y0, x1 - x0, y1 - y0],
+                    "area": (x1 - x0) * (y1 - y0), "iscrowd": 0})
+    with open(json_path, "w") as f:
+        json.dump(coco, f)
+    del det
+    torch.cuda.empty_cache()
+    return len(coco["annotations"])
+
+
+def dp_trainer_cfg(tmp, names, weights):
+    return config_of(FLAGSHIP, {
+        "MODEL.WEIGHTS": weights, "DATASETS.TRAIN": (names[0],),
+        "DATASETS.UNLABELED": (names[1],), "DATASETS.TEST": (names[2],),
+        "SOLVER.IMS_PER_BATCH": 2 * TRAIN_IMAGES, "SOLVER.MAX_ITER": 2,
+        "SOLVER.CHECKPOINT_PERIOD": 2, "TEST.EVAL_PERIOD": 2,
+        "OUTPUT_DIR": os.path.join(tmp, "out")})
+
+
+def dp_peak(fn):
+    """``fn()``'s result, its ms and the device memory it took at its peak
+    above what was allocated before it (MiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+class DropoutDraws:
+    """Counts DETR's dropout calls and the float32 values they draw (the
+    whole chunk's rows under data parallelism) while in the block."""
+
+    def __enter__(self):
+        from aldi_tpu_torch.models import detr
+
+        self.calls = self.values = 0
+        self.cls, self.saved = detr._Dropout, detr._Dropout.__call__
+        counts = self
+
+        def call(drop, x):
+            if drop.gen is not None:
+                counts.calls += 1
+                counts.values += drop.world * x.numel()
+            return counts.saved(drop, x)
+
+        self.cls.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.saved
+
+
+def dp_draw_cost(card):
+    """What every rank's draws of the whole global batch cost at world 2
+    (``shard_draws``), against the same rank's images drawn alone (the
+    cost of a per-rank draw, which would not give world 1's bits), on this
+    card: R50-FPN's ``draw_step`` at the published SOLVER.IMS_PER_BATCH 48
+    (24 + 24, a rank's 12 + 12), and Deformable DETR's DAOD step on rank
+    0's 8 + 8 of the published 16 + 16 chunk, whose dropout masks are drawn
+    for the chunk's 16 rows inside the step. Time and peak memory above
+    the allocation before; prints them."""
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.parallel.mesh import shard_batch, shard_draws
+
+    cfg = config_of(FLAGSHIP)
+    det = build_detector(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    n = cfg.SOLVER.IMS_PER_BATCH // 2
+    variants = {
+        "world 2": lambda: shard_draws(draw_step(gen, det, n, n), 1, 0,
+                                       DP_WORLD),
+        "alone": lambda: draw_step(gen, det, n // DP_WORLD, n // DP_WORLD)}
+    r50 = {k: [] for k in variants}
+    for _ in range(3):
+        for name, fn in variants.items():
+            r50[name].append(dp_peak(fn)[1:])
+    print(f"[dp] R50-FPN draw_step at the published global {n} + {n}, rank "
+          f"0 of {DP_WORLD}: the global draws and the rank's share, ms "
+          f"{fmt([t for t, _ in r50['world 2']])}, peak "
+          f"{r50['world 2'][-1][1]:.1f} MiB; the rank's {n // DP_WORLD} + "
+          f"{n // DP_WORLD} drawn alone, ms "
+          f"{fmt([t for t, _ in r50['alone']])}, peak "
+          f"{r50['alone'][-1][1]:.1f} MiB; card {card}", flush=True)
+    del det
+
+    c = DETR_PUBLISHED_CHUNK
+    cfg = detr_config()
+    cfg.SOLVER.IMS_PER_BATCH = 2 * c
+    cfg.DOMAIN_ADAPT.TEACHER.THRESHOLD = 0.0  # as the DETR phase
+    det = build_detector(cfg)
+    state = create_train_state(cfg, det, seeded_weights(det, seed=0))
+    step = make_train_step(cfg, det)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    batch = shard_batch(synthetic_train_batch(
+        gen, det.canvas, cfg.TPU.MAX_GT, det.num_classes, c), 1, 0, DP_WORLD)
+    variants = {
+        "world 2": lambda: shard_draws(draw_step(gen, det, c, c), 1, 0,
+                                       DP_WORLD),
+        "alone": lambda: draw_step(gen, det, c // DP_WORLD, c // DP_WORLD)}
+    detr = {k: [] for k in variants}
+    state, _ = step(state, batch, variants["alone"]())  # warm-up
+    for _ in range(2):
+        for name, fn in variants.items():
+            with DropoutDraws() as drawn:
+                (state, _), ms, peak = dp_peak(
+                    lambda: step(state, batch, fn()))
+            detr[name].append((ms, peak, drawn.calls, drawn.values))
+    w2, alone = detr["world 2"][-1], detr["alone"][-1]
+    print(f"[dp] Deformable DETR DAOD step on rank 0's {c // DP_WORLD} + "
+          f"{c // DP_WORLD} of the published {c} + {c} chunk (float32): with "
+          f"the global draws (dropout masks of the chunk's rows), ms "
+          f"{fmt([r[0] for r in detr['world 2']])}, peak {w2[1]:.1f} MiB, "
+          f"{w2[2]} dropout calls drawing {w2[3] * 4 / 2**30:.2f} GiB of "
+          f"float32; the rank's rows drawn alone, ms "
+          f"{fmt([r[0] for r in detr['alone']])}, peak {alone[1]:.1f} MiB, "
+          f"{alone[2]} calls drawing {alone[3] * 4 / 2**30:.2f} GiB; card "
+          f"{card}", flush=True)
+    del state, step, det, batch
+
+
+def dp_phase(card):
+    """Data-parallel training (``aldi_tpu_torch/parallel/mesh.py``; see the
+    module docstring). Returns each world-2 rank's kernel launches in its
+    R50-FPN steps and the numbers of the world-1 group check."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aldi_tpu_torch.engine.trainer import ALDITrainer
+
+    t_phase = time.perf_counter()
+    numbers = dp_world1_group(card)
+    torch.cuda.empty_cache()
+    dp_draw_cost(card)
+    torch.cuda.empty_cache()
+
+    # b. world 2 on this card against world 1, float32
+    per_step = {"match_iou": 3, "low_quality_mask": 3, "roi_align_fwd": 4,
+                "roi_align_bwd": 2}
+    n = 2
+    t0 = time.perf_counter()
+    ranks = dp_spawn(dp_steps_of_both, (n,))
+    world2_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    r50_want = dp_steps(0, 1, FLAGSHIP, DP_FLOAT32, n, 31)
+    yolo_want = dp_steps(0, 1, YOLO_ALDI, {**DP_FLOAT32, **DP_YOLO}, 1, 32)
+    torch.cuda.empty_cache()
+    loss_err, param_err, _, got = dp_compare(
+        "R50-FPN", [r[0] for r in ranks], r50_want, per_step)
+    shares = [r[0]["metrics"][0]["num_pseudo_labels"] for r in ranks]
+    print(f"[dp] R50-FPN DAOD step, float32, world 2 (two gloo ranks on one "
+          f"card, {TRAIN_IMAGES // DP_WORLD} + {TRAIN_IMAGES // DP_WORLD} "
+          f"images each of a global {TRAIN_IMAGES} + {TRAIN_IMAGES}) against "
+          f"world 1, {n} steps: summed losses worst relative error "
+          f"{loss_err:.3g} (tol {DP_LOSS_RTOL}), parameters max abs err "
+          f"{param_err:.3g} (tol {DP_PARAM_ATOL}); the ranks' parameters "
+          f"bitwise equal; num_pseudo_labels shares {shares}; launches in "
+          f"the {n} steps of each rank {[r[0]['launches'] for r in ranks]}; "
+          f"rank 0's "
+          f"step ms {fmt(ranks[0][0]['ms'])} (two processes on one card: a "
+          f"correctness check, not a multi-GPU speed); world 1's "
+          f"{fmt(r50_want['ms'])}; the two ranks took {world2_s:.1f} s with "
+          f"their start; card {card}", flush=True)
+    print("[dp] R50-FPN world-2 summed losses of the last step: " + json.dumps(
+        {k: round(v, 5) for k, v in got[-1].items()}), flush=True)
+    if loss_err > DP_LOSS_RTOL or param_err > DP_PARAM_ATOL:
+        fail("data parallel: R50-FPN at world 2 differs from world 1")
+    moves = r50_want["moves"]
+    print(f"[dp] R50-FPN world 1, float32: the student's largest move per "
+          f"step {', '.join(f'{m:.3g}' for m in moves)} (at least {DP_MOVE_FACTOR} x "
+          f"DP_PARAM_ATOL = {DP_MOVE_FACTOR * DP_PARAM_ATOL:.3g} required); "
+          f"card {card}", flush=True)
+    if min(moves) < DP_MOVE_FACTOR * DP_PARAM_ATOL:
+        fail("data parallel: the parameters move too little per step for "
+             "DP_PARAM_ATOL to tell a wrong step from a right one")
+    for name, limit in DP_FAULTS.items():
+        f_loss, f_param, _, _ = dp_errors(
+            f"R50-FPN, {name} planted", [r[2][name] for r in ranks],
+            r50_want)
+        print(f"[dp] R50-FPN at world 2 with {name} planted: summed losses "
+              f"worst relative error {f_loss:.3g} (tol {DP_LOSS_RTOL}), "
+              f"parameters max abs err {f_param:.3g} (tol {DP_PARAM_ATOL}); "
+              f"the {limit} limit must catch it; card {card}", flush=True)
+        caught = (f_loss > DP_LOSS_RTOL if limit == "losses"
+                  else f_param > DP_PARAM_ATOL)
+        if not caught:
+            fail(f"data parallel: the {limit} limit does not catch {name}")
+    loss_err, param_err, stats_err, _ = dp_compare(
+        "YOLOv5-m", [r[1] for r in ranks], yolo_want)
+    print(f"[dp] YOLOv5-m DAOD step, float32, world 2 against world 1: "
+          f"summed losses worst relative error {loss_err:.3g} (tol "
+          f"{DP_LOSS_RTOL}), parameters max abs err {param_err:.3g} (tol "
+          f"{DP_PARAM_ATOL}), BatchNorm running statistics max err / scale "
+          f"{stats_err:.3g} (tol {DP_STATS_RTOL}); the ranks' parameters and "
+          f"running statistics bitwise equal; card {card}", flush=True)
+    if (loss_err > DP_LOSS_RTOL or param_err > DP_PARAM_ATOL
+            or stats_err > DP_STATS_RTOL):
+        fail("data parallel: YOLOv5-m at world 2 differs from world 1")
+    launches = [r[0]["launches"] for r in ranks]
+    del ranks, r50_want, yolo_want
+
+    # c. the trainer at world 2, then world 1's eval of its checkpoint
+    tmp = tempfile.mkdtemp(prefix="aldi_smoke_dp_trainer_")
+    try:
+        names = ("smoke_dp_train", "smoke_dp_unlabeled", "smoke_dp_val")
+        paths = [write_synthetic_coco(tmp, name, k, seed)
+                 for name, k, seed in zip(names, (8, 8, 16), (4, 5, 6))]
+        weights = os.path.join(tmp, "reference.pth")
+        reference_pth(weights, 8)
+        n_boxes = dp_oracle_val(tmp, names, paths, weights)
+        t0 = time.perf_counter()
+        results = dp_spawn(dp_trainer, (tmp, names, paths, weights))
+        trainer_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "out")
+        files = sorted(os.listdir(out))
+        want_files = sorted(["last_checkpoint", "log.txt", "metrics.json",
+                             "model_0000002.pth", "tensorboard",
+                             "trainer_state.json",
+                             f"{names[2]}_model_best.pth"])
+        with open(os.path.join(out, "metrics.json")) as f:
+            lines = f.read().splitlines()
+        trainer = ALDITrainer(dp_trainer_cfg(tmp, names, weights))
+        trainer.resume_or_load(resume=True)
+        if trainer.state.step != 2:
+            fail("data parallel: the world-2 checkpoint did not resume at 2")
+        want = trainer.test()[names[2]]
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = [r[names[2]] for r in results]
+    print(f"[dp] ALDITrainer at world 2 (two gloo ranks on one card, 2 + 2 "
+          f"images each, 2 iterations, a checkpoint and an eval of 16 images "
+          f"at 2, its {n_boxes} boxes the reference weights' own detections "
+          f"above 0.5) in {trainer_s:.1f} s with the ranks' start: files "
+          f"{files}, metrics.json lines {len(lines)}; bbox/AP50 of the ranks "
+          f"{[g['bbox/AP50'] for g in got]}, world 1's on the saved weights "
+          f"{want['bbox/AP50']}; bbox/AP {[g['bbox/AP'] for g in got]} vs "
+          f"{want['bbox/AP']}; card {card}", flush=True)
+    if files != want_files or len(lines) != 1:
+        fail(f"data parallel: the world-2 trainer wrote {files} and "
+             f"{len(lines)} metrics lines, not {want_files} and 1 (rank 0 "
+             f"alone)")
+    if not want["bbox/AP50"] > 10:
+        fail(f"data parallel: the eval's bbox/AP50 {want['bbox/AP50']} is "
+             "too low to hold the gather to")
+    for g in got:
+        for k in ("bbox/AP", "bbox/AP50", "bbox/AP75"):
+            if g[k] != want[k]:
+                fail(f"data parallel: world 2's {k} {g[k]} is not world 1's "
+                     f"{want[k]}")
+    print(f"[time] the data-parallel phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, numbers
+
+
 def yolo_config(overrides=None):
     """The ALDI-Yolo recipe (YOLOv5-m, 8 classes, bfloat16) with
     ``overrides``."""
@@ -3681,7 +4317,12 @@ def main():
     del recorded
     torch.cuda.empty_cache()
 
-    # -- 7. YOLOv5-m: serving, the DAOD step (and with image-level
+    # -- 7. data parallel: a world-1 NCCL group (bitwise the step without
+    # one), world 2 on this card (two gloo ranks) against world 1, and the
+    # trainer at world 2
+    dp_launches, _ = dp_phase(card)
+
+    # -- 8. YOLOv5-m: serving, the DAOD step (and with image-level
     # alignment, and once at the published chunk of 12 + 12), the artifact
     # and the tiny card-vs-CPU step. None of the six kernels is on its
     # paths: each path must launch none
@@ -3697,7 +4338,7 @@ def main():
         card, YOLO_ALDI, all_kernels, {})
     tiny_yolo_train_reference_check()
 
-    # -- 8. Deformable DETR: serving, the DAOD step (and once at the
+    # -- 9. Deformable DETR: serving, the DAOD step (and once at the
     # published chunk of 16 + 16), K4 at the warm-up step's own launches,
     # the artifact and the tiny card-vs-CPU detectors and steps. K4 is the
     # only kernel of its paths: twice per step, never per request
@@ -3721,7 +4362,7 @@ def main():
     print(f"[time] the Deformable DETR phase took "
           f"{time.perf_counter() - t_detr:.1f} s", flush=True)
 
-    # -- 9. result lines. ``launches``: K1/K2 from the flagship's timed
+    # -- 10. result lines. ``launches``: K1/K2 from the flagship's timed
     # training steps, K3a/K3b from ViTDet-B's; ``launches_by_path`` has
     # every path's count (K2's forward and K3a also serve). The other
     # numbers: the kernel phase's, at the paths' shapes (K2's forward on a
@@ -3736,6 +4377,8 @@ def main():
                "R50-FPN trainer": trainer_launches,
                "R50-FPN eval": {"roi_align_fwd":
                                 eval_launches["roi_align_fwd"]},
+               **{f"R50-FPN world 2 training, rank {r} (2 steps)": c
+                  for r, c in enumerate(dp_launches)},
         **{f"{m} serving": v for m, v in serving_launches.items()},
         **{f"{m} artifact": v for m, v in artifact_launches.items()},
         **yolo_launches, **detr_launches}
