@@ -34,14 +34,21 @@ from .. import resolve_device
 from .catalog import DatasetCatalog
 from .coco import filter_empty
 from ..parallel.mesh import shard_positions
+from .proposals import load_proposals_into_dataset, proposal_files_for
 from .transforms import (apply_transform, draw_transform,
                          transform_record)
 
 
-def get_dataset_records(names, filter_empty_annotations=True) -> List[dict]:
+def get_dataset_records(names, filter_empty_annotations=True,
+                        proposal_files=None) -> List[dict]:
+    """The records of the datasets ``names``; ``proposal_files`` (one file
+    or None per dataset) attaches their precomputed proposals."""
     records = []
-    for name in names:
-        records.extend(DatasetCatalog.get(name))
+    for i, name in enumerate(names):
+        recs = DatasetCatalog.get(name)
+        if proposal_files is not None and proposal_files[i]:
+            recs = load_proposals_into_dataset(recs, proposal_files[i])
+        records.extend(recs)
     if filter_empty_annotations:
         records = filter_empty(records)
     if not records:
@@ -53,7 +60,10 @@ class StreamLoader:
     """Infinite loader over one record list. next() -> stacked batch dict.
 
     ``batch_size`` is the global batch's; ``shard`` (rank, world, chunks)
-    keeps a rank's ``shard_positions`` of it."""
+    keeps a rank's ``shard_positions`` of it, the records' proposals with
+    their images. Under MODEL.LOAD_PROPOSALS, records that carry
+    proposals add ``pboxes``, ``plogits`` and ``pvalid`` (the top
+    DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN, or _TEST)."""
 
     def __init__(
         self,
@@ -95,6 +105,10 @@ class StreamLoader:
             canvas=self.canvas,
             max_gt=cfg.TPU.MAX_GT,
             bgr=cfg.INPUT.FORMAT.upper() == "BGR",
+            proposal_topk=(
+                int(cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train
+                    else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+                if cfg.MODEL.LOAD_PROPOSALS else 0),
         )
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
         self._next_submit = 0
@@ -129,6 +143,8 @@ class StreamLoader:
                 recs.append(apply_transform(self.records[i], choice,
                                             **self.apply_params))
         keys = ["image", "sizes", "boxes", "classes", "valid"]
+        if "pboxes" in recs[0]:  # precomputed proposals
+            keys += ["pboxes", "plogits", "pvalid"]
         return {k: np.stack([r[k] for r in recs]) for k in keys}
 
     def __iter__(self):
@@ -205,7 +221,8 @@ class WeakStrongLoader:
         if labeled_bs > 0 and len(cfg.DATASETS.TRAIN):
             self.labeled = StreamLoader(
                 get_dataset_records(
-                    cfg.DATASETS.TRAIN, cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS
+                    cfg.DATASETS.TRAIN, cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+                    proposal_files_for(cfg, cfg.DATASETS.TRAIN, train=True),
                 ),
                 labeled_bs, cfg, canvas, True, seed, threads,
                 cfg.TPU.PREFETCH, shard,
@@ -347,14 +364,26 @@ class TestLoader:
     image_id and the resize scale for mapping canvas boxes back to original
     image coordinates (done on the host by the evaluator). ``shard`` (rank,
     world) keeps a rank's strided slice of the test set, as the JAX
-    package's does; the evaluator gathers the predictions."""
+    package's does; the evaluator gathers the predictions. Under
+    MODEL.LOAD_PROPOSALS a dataset of DATASETS.TEST with a file in
+    DATASETS.PROPOSAL_FILES_TEST adds ``pboxes`` and ``pvalid`` (the top
+    DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)."""
 
     __test__ = False  # not a pytest class
 
     def __init__(self, dataset_name: str, cfg, canvas, batch_size: int = 8,
                  shard=(0, 1)):
         rank, world = shard
-        self.records = DatasetCatalog.get(dataset_name)[rank::world]
+        records = DatasetCatalog.get(dataset_name)
+        self.proposal_topk = 0
+        if cfg.MODEL.LOAD_PROPOSALS and dataset_name in cfg.DATASETS.TEST:
+            pf = proposal_files_for(cfg, cfg.DATASETS.TEST, train=False)[
+                list(cfg.DATASETS.TEST).index(dataset_name)]
+            if pf:
+                records = load_proposals_into_dataset(records, pf)
+                self.proposal_topk = int(
+                    cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+        self.records = records[rank::world]
         self.cfg = cfg
         self.canvas = tuple(canvas)
         self.batch_size = batch_size
@@ -375,12 +404,15 @@ class TestLoader:
                     max_gt=self.cfg.TPU.MAX_GT,
                     bgr=self.cfg.INPUT.FORMAT.upper() == "BGR",
                     is_train=False,
+                    proposal_topk=self.proposal_topk,
                 )
                 for r in chunk
             ]
             npad = bs - len(recs)
-            batch = {k: np.stack([r[k] for r in recs])
-                     for k in ("image", "sizes")}
+            keys = ["image", "sizes"]
+            if "pboxes" in recs[0]:
+                keys += ["pboxes", "pvalid"]
+            batch = {k: np.stack([r[k] for r in recs]) for k in keys}
             if npad:
                 batch = {
                     k: np.concatenate(

@@ -12,14 +12,17 @@ flipped, then pasted top-left onto the fixed canvas; boxes are transformed
 alongside; the actual (h, w) is reported so the model can clip and mask the
 padding. Images are decoded and resized with PIL, exactly as the JAX
 package's PIL branch does; the JAX package's native decoder
-(``aldi_native``) is not used. Precomputed proposals
-(``MODEL.LOAD_PROPOSALS``) are not ported: ROADMAP.md lists them.
+(``aldi_native``) is not used. A record's precomputed proposals
+(``MODEL.LOAD_PROPOSALS``, ``data/proposals.py``) take the same drawn
+choice as its image and gt boxes.
 """
 
 from typing import List, Tuple
 
 import numpy as np
 from PIL import Image
+
+from .proposals import transform_proposals
 
 
 def resize_shortest_edge(
@@ -125,7 +128,7 @@ def draw_transform(record: dict, rng: np.random.Generator,
 
 def apply_transform(record: dict, choice, max_size: int,
                     canvas: Tuple[int, int], max_gt: int = 100,
-                    bgr: bool = True):
+                    bgr: bool = True, proposal_topk: int = 0):
     """``record`` decoded and transformed by ``choice``
     (``draw_transform``'s): the output of ``transform_record``."""
     short, do_flip, box = choice
@@ -157,7 +160,7 @@ def apply_transform(record: dict, choice, max_size: int,
         np.clip(boxes[:, [1, 3]], 0, h, out=boxes[:, [1, 3]])
     out_img = np.zeros((ch, cw, 3), np.uint8)
     out_img[:h, :w] = arr
-    return {
+    out = {
         "image": out_img,
         "sizes": np.asarray([h, w], np.int32),
         "boxes": boxes,
@@ -166,6 +169,13 @@ def apply_transform(record: dict, choice, max_size: int,
         "image_id": record["image_id"],
         "scale": scale,
     }
+    if proposal_topk > 0 and "proposal_boxes" in record:
+        out["pboxes"], out["plogits"], out["pvalid"] = transform_proposals(
+            record["proposal_boxes"], record["proposal_objectness_logits"],
+            scale, do_flip, w, h, proposal_topk,
+            crop_offset=None if box is None else box[:2],
+            crop_wh=None if box is None else box[2:])
+    return out
 
 
 def transform_record(
@@ -180,11 +190,15 @@ def transform_record(
     bgr: bool = True,
     crop: dict = None,
     is_train: bool = True,
+    proposal_topk: int = 0,
 ):
     """record (COCO dict) -> dict of fixed-shape numpy arrays: {image uint8
     [H, W, 3] on the canvas, sizes [2], boxes [G, 4], classes [G],
-    valid [G], image_id, scale}. ``rng`` is drawn from in the JAX
-    package's order (short edge, flip, then the crop)."""
+    valid [G], image_id, scale}; with ``proposal_topk > 0`` and a record
+    that carries proposals, also {pboxes [K, 4], plogits [K], pvalid [K]}
+    (``data/proposals.py`` ``transform_proposals``). ``rng`` is drawn from
+    in the JAX package's order (short edge, flip, then the crop)."""
     choice = draw_transform(record, rng, min_sizes, flip, sampling, crop,
                             is_train)
-    return apply_transform(record, choice, max_size, canvas, max_gt, bgr)
+    return apply_transform(record, choice, max_size, canvas, max_gt, bgr,
+                           proposal_topk)

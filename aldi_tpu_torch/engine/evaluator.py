@@ -83,13 +83,26 @@ def gather_predictions(predictions: Dict[int, list]) -> Dict[int, list]:
     return unpack_predictions(torch.stack(gathered).cpu().numpy(), counts)
 
 
+def device_inputs(batch, device):
+    """A ``TestLoader`` batch on ``device``: (images, sizes, the keywords
+    of ``forward_inference``: under MODEL.LOAD_PROPOSALS the batch's
+    proposals as ``precomputed``)."""
+    def t(key):
+        return torch.from_numpy(batch[key]).to(device)
+
+    pre = ({"precomputed": {"boxes": t("pboxes"), "valid": t("pvalid")}}
+           if "pboxes" in batch else {})
+    return t("image"), t("sizes"), pre
+
+
 def inference_on_dataset(
     detector, dataset_name: str, cfg, batch_size: int = 8, logger=None,
     module=None,
 ) -> Dict[str, float]:
     """AP of ``module`` (an RCNN or a YOLOv5, which runs in eval mode on
     its running statistics: the EMA teacher, say; the detector's own by
-    default) on a registered dataset. Returns the ``bbox/AP``,
+    default) on a registered dataset; under MODEL.LOAD_PROPOSALS the box
+    head scores the test set's file proposals. Returns the ``bbox/AP``,
     ``bbox/AP50``, ... keys of ``evaluate_detections`` and
     ``images_per_sec`` (host clock over the inference loop, loading
     included; the whole test set's images under data parallelism, where
@@ -102,9 +115,8 @@ def inference_on_dataset(
     n_images = 0
     t0 = time.time()
     for batch, metas in loader:
-        images = torch.from_numpy(batch["image"]).to(detector.device)
-        sizes = torch.from_numpy(batch["sizes"]).to(detector.device)
-        out = detector.forward_inference(images, sizes, module=module)
+        images, sizes, pre = device_inputs(batch, detector.device)
+        out = detector.forward_inference(images, sizes, module=module, **pre)
         boxes, scores, classes, valid = (t.cpu().numpy() for t in out)
         for i, meta in enumerate(metas):
             s = meta["scale"]

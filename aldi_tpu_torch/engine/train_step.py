@@ -38,10 +38,18 @@ of a step up front from a ``torch.Generator`` (static shapes: the canvas's
 N anchors, POST_NMS_TOPK_TRAIN + MAX_GT ROI candidates, the canvas's
 pixels), and ``step(state, batch, draws)`` is then deterministic. The step
 updates the state in place (the student's and the teacher's parameters, the
-optimizer's buffers, the step count) and returns it with the metrics.
+optimizer's buffers, the step count) and returns it with the metrics. A
+trainable parameter that no loss reached gets a zero gradient, as JAX's
+gradient of it is zero: weight decay and momentum still move it.
+
+MODEL.LOAD_PROPOSALS (Fast R-CNN, supervised only, as in the JAX package,
+``:117-125,219-228``): the labeled batch's ``pboxes``/``pvalid`` go to the
+labeled streams as their proposals, the RPN does not run, and the ROI
+sampler draws over PRECOMPUTED_PROPOSAL_TOPK_TRAIN + MAX_GT candidates.
 
 Batches: ``{"labeled": {"image" [B, H, W, 3] in 0..255, "sizes" [B, 2],
-"boxes" [B, MAX_GT, 4], "classes" [B, MAX_GT], "valid" [B, MAX_GT]},
+"boxes" [B, MAX_GT, 4], "classes" [B, MAX_GT], "valid" [B, MAX_GT]
+(under MODEL.LOAD_PROPOSALS also "pboxes" [B, K, 4], "pvalid" [B, K])},
 "unlabeled": {"image", "sizes"}}``, on the detector's device.
 """
 
@@ -54,9 +62,9 @@ import torch
 
 from ..config import resolve_canvas
 from ..data.strong_aug import strong_aug_draws, strong_augment
-from ..models.rcnn import check_trainable
 from ..models.resnet import FrozenBN
-from ..ops.matcher import sample_proposals_draws, subsample_indices_draws
+from ..ops.matcher import (sample_proposals_draws, subsample_indices_draws,
+                           subsample_labels_draws)
 from ..parallel.mesh import all_reduce_grads
 from ..solver import build_lr_schedule, build_optimizer, clip_gradients, set_lr
 from ..structures import Instances
@@ -183,12 +191,28 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
     n_anchors = detector.anchors_cat.shape[0]
     rpn = detector.rpn_params
     k_rpn = min(rpn["batch_size_per_image"], n_anchors)
-    n_cand = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + (
+    # the ROI sampler's candidates: the RPN's train proposals, or under
+    # MODEL.LOAD_PROPOSALS the file's top PRECOMPUTED_PROPOSAL_TOPK_TRAIN,
+    # and the appended gt slots
+    n_cand = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN
+              if cfg.MODEL.LOAD_PROPOSALS
+              else cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN) + (
         cfg.TPU.MAX_GT if cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT else 0)
 
     def anchors(b):
+        """The draws of the sampled anchor set (the teacher's distill
+        anchors, TPU.RPN_LOSS_IMPL "sampled")."""
         return subsample_indices_draws(gen, (b,), n_anchors, k_rpn,
                                        rpn["positive_fraction"])
+
+    def rpn_loss(b):
+        """The draws of the student's RPN loss: none without the RPN
+        (MODEL.LOAD_PROPOSALS), every anchor's for the dense loss."""
+        if cfg.MODEL.LOAD_PROPOSALS:
+            return {}
+        if cfg.TPU.RPN_LOSS_IMPL != "sampled":
+            return {"rpn": subsample_labels_draws(gen, (b,), n_anchors)}
+        return {"rpn": anchors(b)}
 
     keep = detector.module.backbone.keep_rates()
     if keep is not None:
@@ -203,7 +227,7 @@ def draw_step(gen: torch.Generator, detector, n_labeled: int,
         return out
 
     def chunk(b):
-        return drop({"rpn": anchors(b),
+        return drop({**rpn_loss(b),
                      "roi": sample_proposals_draws(gen, (b,), n_cand)}, b)
 
     def align_chunk(b):
@@ -275,9 +299,14 @@ def make_train_step(cfg, detector):
     the JAX package's keys (``loss_*_source_strong``, ``loss_*_distill``,
     ``loss_da_*_target_weak``, ...), ``total_loss`` and, with distillation,
     ``num_pseudo_labels``."""
-    if _has_samplers(cfg):
-        check_trainable(cfg)
     s = stream_flags(cfg)
+    if cfg.MODEL.LOAD_PROPOSALS and (s.align or s.distill):
+        # precomputed proposals replace the RPN outright; the DA streams
+        # (pseudo-labels, alignment) need live proposals on unlabeled
+        # images, which no proposal file covers (as in the JAX package)
+        raise NotImplementedError(
+            "MODEL.LOAD_PROPOSALS is supervised-only (Fast-R-CNN "
+            "training); disable DOMAIN_ADAPT align/distill streams")
     accum = grad_accum(cfg)
     active = [n for n, on in (("weak", s.weak), ("strong", s.strong),
                               ("align", s.align), ("distill", s.distill))
@@ -339,15 +368,20 @@ def make_train_step(cfg, detector):
         def stream(name, m, d):
             """Stream ``name``'s weighted losses on chunk ``m`` with its
             draws ``d``."""
+            # MODEL.LOAD_PROPOSALS: the labeled batch's proposals
+            pre = ({"precomputed": {"boxes": m["lab"]["pboxes"],
+                                    "valid": m["lab"]["pvalid"]}}
+                   if m["lab"] is not None and "pboxes" in m["lab"] else {})
             if name == "weak":
                 losses, _ = detector.forward_train(
                     student, m["lab"]["image"], m["lab"]["sizes"], m["gt"],
-                    d.get("weak"), do_align=s.align, domain_label=1.0)
+                    d.get("weak"), do_align=s.align, domain_label=1.0, **pre)
                 return weighted(losses, "source_weak", n_lw / n_eff)
             if name == "strong":
                 losses, _ = detector.forward_train(
                     student, m["ls"], m["lab"]["sizes"], m["gt"],
-                    d.get("strong"), do_align=s.align, domain_label=1.0)
+                    d.get("strong"), do_align=s.align, domain_label=1.0,
+                    **pre)
                 return weighted(losses, "source_strong", n_ls / n_eff)
             if name == "align":
                 losses = detector.forward_domain_align(
@@ -401,6 +435,12 @@ def make_train_step(cfg, detector):
                 v = v.detach() / accum
                 loss_dict[k] = loss_dict[k] + v if k in loss_dict else v
         params = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                # a parameter no loss reached (the RPN head under
+                # MODEL.LOAD_PROPOSALS): JAX's zero gradient, which weight
+                # decay and momentum still move
+                p.grad = torch.zeros_like(p)
         all_reduce_grads(params)
         clip_gradients(cfg, params)
         set_lr(opt, state.schedule(state.step))

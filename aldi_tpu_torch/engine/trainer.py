@@ -83,11 +83,15 @@ def auto_scale_workers(cfg, world_size: int):
 
 def trainer_device(cfg, device=None) -> torch.device:
     """``device`` if given, else MODEL.DEVICE: ``cpu`` is the CPU, anything
-    else the rank's card ``cuda:LOCAL_RANK`` (raises without one)."""
+    else the rank's card ``cuda:LOCAL_RANK`` (raises without one); a
+    ``cuda`` without an index is the rank's card too."""
     if device is None:
         device = ("cpu" if str(cfg.MODEL.DEVICE).lower() == "cpu"
-                  else f"cuda:{mesh.local_rank()}")
-    return resolve_device(device)
+                  else "cuda")
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", mesh.local_rank())
+    return device
 
 
 def _to_device(batch, device):

@@ -17,8 +17,9 @@ def build_detector(cfg, device=None, seed=0):
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE={name} is not ported yet: ROADMAP.md "
             "lists it under 'Modules still to port'")
-    if cfg.MODEL.LOAD_PROPOSALS:
+    if cfg.MODEL.LOAD_PROPOSALS and name != "GeneralizedRCNN":
+        # precomputed proposals are a two-stage (Fast R-CNN) concept, taken
+        # only by the R-CNN's ROI heads, as in detectron2
         raise NotImplementedError(
-            "MODEL.LOAD_PROPOSALS is not ported yet: ROADMAP.md lists it "
-            "under 'Modules still to port'")
+            f"MODEL.LOAD_PROPOSALS requires GeneralizedRCNN (got {name})")
     return DETECTORS[name](cfg, device, seed)

@@ -4,7 +4,8 @@ Port of ``aldi_tpu/models/rcnn.py`` for the ResNet-FPN, ConvNeXt-FPN and
 ViTDet-B/L backbones (``MODEL.BACKBONE.NAME``, ``:130-193``): the serving
 path (``RCNNDetector.forward_inference``, ``:694-726``) and the DAOD
 training interface (``forward_train``, ``forward_teacher``,
-``forward_teacher_ctx``, ``distill_losses``, ``:379-659``) with
+``forward_teacher_ctx``, ``distill_losses``, ``:379-659``; Fast R-CNN on
+precomputed proposals, MODEL.LOAD_PROPOSALS, ``:415-446,706-708``) with
 adversarial domain alignment (``grad_reverse``, the image- and
 instance-level discriminators, ``_align_losses`` and the target_weak
 stream's ``forward_domain_align``, ``:45-94,504-528,662-691``). ``RCNN`` holds
@@ -40,7 +41,7 @@ from .roi_heads import (FastRCNNConvFCHead, FastRCNNOutputLayers, box_pooler,
                         fast_rcnn_inference, fast_rcnn_losses,
                         sample_proposals)
 from .rpn import (StandardRPNHead, generate_proposals, label_anchors_sampled,
-                  rpn_losses)
+                  rpn_losses, rpn_losses_dense)
 from .vit import ViTDetBackbone
 
 VIT_BACKBONES = ("build_vitdet_b_backbone", "build_vitdet_l_backbone")
@@ -179,13 +180,6 @@ def _check_supported(cfg):
         raise NotImplementedError(
             f"MODEL.RESNETS.RES5_DILATION={d}: DC5 is not supported under "
             "the FPN R-CNN family")
-
-
-def check_trainable(cfg):
-    """Raise on training options the port does not carry yet."""
-    if cfg.TPU.RPN_LOSS_IMPL != "sampled":
-        raise NotImplementedError(
-            f"TPU.RPN_LOSS_IMPL={cfg.TPU.RPN_LOSS_IMPL!r} {_NOT_PORTED}")
 
 
 class RCNNDetector:
@@ -331,29 +325,41 @@ class RCNNDetector:
 
     # ---------------------------------------------------------- train pass
     def forward_train(self, module, images, image_sizes, gt, draws,
-                      do_align=False, domain_label=1.0):
+                      do_align=False, domain_label=1.0, precomputed=None):
         """Full training forward of ``module`` on images [B, H, W, 3] with
         ground truth ``gt`` (``Instances`` padded to MAX_GT). ``draws``:
         ``{"rpn": ..., "roi": ...}`` (and ``"drop"`` for a ViT or ConvNeXt
-        backbone) from ``engine.train_step.draw_step``. ``do_align`` adds
-        the discriminators' losses against ``domain_label`` (1 for the
-        source domain).
+        backbone) from ``engine.train_step.draw_step``; the RPN's are those
+        of TPU.RPN_LOSS_IMPL's loss. ``do_align`` adds the discriminators'
+        losses against ``domain_label`` (1 for the source domain).
+        ``precomputed``: ``{"boxes" [B, K, 4], "valid" [B, K]}``, region
+        proposals from a file (MODEL.LOAD_PROPOSALS, Fast R-CNN): the RPN
+        head does not run and adds no loss, and the ROI sampler takes these
+        proposals (with the gt appended).
         Returns (losses, aux); aux carries the RPN head outputs
-        (concatenated over levels, float32), the sampled ROI set and the box
-        predictor's outputs on it, for the distill losses."""
-        check_trainable(self.cfg)
+        (concatenated over levels, float32; not with ``precomputed``), the
+        sampled ROI set and the box predictor's outputs on it, for the
+        distill losses."""
         feats = self.backbone(self.preprocess(images), module,
                               draws.get("drop"))
-        logits, deltas, logits_cat, deltas_cat = self._rpn_outputs(
-            feats, module)
-        losses = rpn_losses(self.anchors_cat, logits_cat, deltas_cat,
-                            gt.boxes, gt.valid, draws["rpn"],
-                            **self.rpn_params)
-        # proposals are constants of the ROI stage (the JAX package's
-        # stop_gradient): no gradient through decode, NMS and top-k
-        with torch.no_grad():
-            pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes,
-                                               train=True)
+        aux = {}
+        if precomputed is not None:
+            losses = {}
+            pboxes, pvalid = precomputed["boxes"], precomputed["valid"]
+        else:
+            logits, deltas, logits_cat, deltas_cat = self._rpn_outputs(
+                feats, module)
+            loss_fn = (rpn_losses if self.cfg.TPU.RPN_LOSS_IMPL == "sampled"
+                       else rpn_losses_dense)
+            losses = loss_fn(self.anchors_cat, logits_cat, deltas_cat,
+                             gt.boxes, gt.valid, draws["rpn"],
+                             **self.rpn_params)
+            aux.update(rpn_logits=logits_cat, rpn_deltas=deltas_cat)
+            # proposals are constants of the ROI stage (the JAX package's
+            # stop_gradient): no gradient through decode, NMS and top-k
+            with torch.no_grad():
+                pboxes, _, pvalid = self.proposals(logits, deltas,
+                                                   image_sizes, train=True)
         sampled = sample_proposals(pboxes, pvalid, gt.boxes, gt.classes,
                                    gt.valid, draws["roi"],
                                    **self.roi_sample_params)
@@ -365,13 +371,9 @@ class RCNNDetector:
         if do_align:
             losses.update(self._align_losses(module, feats, box_feats,
                                              domain_label))
-        aux = {
-            "rpn_logits": logits_cat,
-            "rpn_deltas": deltas_cat,
-            "sampled": sampled,
-            "roih_cls_logits": cls_logits.to(torch.float32),
-            "roih_deltas": box_deltas.to(torch.float32),
-        }
+        aux.update(sampled=sampled,
+                   roih_cls_logits=cls_logits.to(torch.float32),
+                   roih_deltas=box_deltas.to(torch.float32))
         return losses, aux
 
     def _align_losses(self, module, feats, box_feats, domain_label):
@@ -516,19 +518,23 @@ class RCNNDetector:
         space). images [B, H, W, 3] in 0..255 (float or uint8),
         image_sizes [B, 2] (h, w), both on the detector's device;
         ``module``: the RCNN to run (the EMA teacher, say), the detector's
-        own by default. Returns (boxes [B, D, 4], scores [B, D], classes
-        [B, D] int32, valid [B, D])."""
-        if precomputed is not None:
-            raise NotImplementedError(f"MODEL.LOAD_PROPOSALS {_NOT_PORTED}")
-        return self.detect(images, image_sizes, module)
+        own by default. ``precomputed``: ``{"boxes" [B, K, 4], "valid"
+        [B, K]}``, MODEL.LOAD_PROPOSALS's proposals, which the box head
+        scores instead of the RPN's (Fast R-CNN inference). Returns (boxes
+        [B, D, 4], scores [B, D], classes [B, D] int32, valid [B, D])."""
+        return self.detect(images, image_sizes, module, precomputed)
 
-    def detect(self, images, image_sizes, module=None):
+    def detect(self, images, image_sizes, module=None, precomputed=None):
         """``forward_inference``'s body without its ``inference_mode``, which
         ``torch.export`` cannot trace: the exported serving module
-        (``engine/export.py``) runs it under ``no_grad``."""
+        (``engine/export.py``) runs it under ``no_grad``, without
+        ``precomputed``."""
         feats = self.backbone(self.preprocess(images), module)
-        logits, deltas = self.rpn_head(feats, module)
-        pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes)
+        if precomputed is not None:
+            pboxes, pvalid = precomputed["boxes"], precomputed["valid"]
+        else:
+            logits, deltas = self.rpn_head(feats, module)
+            pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes)
         cls_logits, box_deltas, _ = self.box_head(feats, pboxes, pvalid,
                                                   module)
         r = self.cfg.MODEL.ROI_HEADS

@@ -2,10 +2,13 @@
 proposal generation.
 
 Port of ``aldi_tpu/models/rpn.py``. Flattened (H, W, A) ordering matches
-``ops/anchors.py``, so logits/deltas/anchors align index for index. Anchor
-labelling runs on the K sampled anchors per image (the JAX package's
-``TPU.RPN_LOSS_IMPL="sampled"``), batched over images: one matcher call
-(kernels K1a/K1b on the card) and one sampler call for the whole batch.
+``ops/anchors.py``, so logits/deltas/anchors align index for index. The
+RPN losses come in the JAX package's two forms, picked by
+``TPU.RPN_LOSS_IMPL``: ``"sampled"`` (``rpn_losses``) runs on the K
+sampled anchors per image; any other value (``"dense"``,
+``rpn_losses_dense``) labels every anchor and reduces masked [B, R]
+tensors. Both are batched over images: one matcher call (kernels K1a/K1b
+on the card) and one sampler call for the whole batch.
 """
 
 from typing import List
@@ -17,7 +20,7 @@ from torch import nn
 from ..ops import boxes as box_ops
 from ..ops.losses import bce_with_logits, smooth_l1
 from ..ops.match_kernel import match_boxes
-from ..ops.matcher import subsample_indices
+from ..ops.matcher import subsample_indices, subsample_labels
 from ..ops.nms import nms_keep_mask, top_k, top_k_by_score
 from ..parallel.mesh import global_batch
 from .layers import Conv2d
@@ -59,6 +62,65 @@ class StandardRPNHead(nn.Module):
             deltas.append(self.anchor_deltas(t).permute(0, 2, 3, 1)
                           .reshape(b, -1, 4))
         return logits, deltas
+
+
+def label_anchors(
+    anchors: torch.Tensor,  # [R, 4] all levels concatenated
+    gt_boxes: torch.Tensor,  # [B, G, 4]
+    gt_valid: torch.Tensor,  # [B, G]
+    draws: dict,
+    batch_size_per_image: int = 256,
+    positive_fraction: float = 0.5,
+    thresholds=(0.3, 0.7),
+):
+    """Substrate ``label_and_sample_anchors`` (``aldi_tpu/models/rpn.py:64-
+    116``): per-anchor labels [B, R] int8 in {-1 ignore, 0 negative, 1
+    positive} after ``subsample_labels`` (``draws``: its ``pos_keys`` and
+    ``neg_keys`` [B, R]), and the matched gt boxes [B, R, 4]."""
+    midx, mlab = match_boxes(anchors, gt_boxes.to(torch.float32), gt_valid,
+                             list(thresholds), [0, -1, 1],
+                             allow_low_quality=True)
+    pos, neg = subsample_labels(mlab.to(torch.int32), batch_size_per_image,
+                                positive_fraction, 0, draws)
+    labels = torch.full(mlab.shape, -1, dtype=torch.int8, device=mlab.device)
+    labels = torch.where(neg, torch.zeros_like(labels), labels)
+    labels = torch.where(pos, torch.ones_like(labels), labels)
+    matched = torch.gather(gt_boxes, 1,
+                           midx.long()[..., None].expand(-1, -1, 4))
+    return labels, matched
+
+
+def rpn_losses_dense(
+    anchors: torch.Tensor,  # [R, 4]
+    logits: torch.Tensor,  # [B, R]
+    deltas: torch.Tensor,  # [B, R, 4]
+    gt_boxes: torch.Tensor,
+    gt_valid: torch.Tensor,
+    draws: dict,
+    batch_size_per_image: int = 256,
+    positive_fraction: float = 0.5,
+    box_reg_weights=(1.0, 1.0, 1.0, 1.0),
+    smooth_l1_beta: float = 0.0,
+) -> dict:
+    """The RPN losses of ``rpn_losses`` as masked reductions over every
+    anchor (``aldi_tpu/models/rpn.py:119-152``, TPU.RPN_LOSS_IMPL
+    ``"dense"``): the objectness BCE over the sampled anchors and the
+    smooth-L1 over the positives, each over B * batch_size_per_image, B the
+    global batch's images. ``draws`` are ``label_anchors``'."""
+    labels, matched_gt = label_anchors(
+        anchors, gt_boxes, gt_valid, draws, batch_size_per_image,
+        positive_fraction)
+    normalizer = global_batch(logits.shape[0]) * batch_size_per_image
+    valid = labels >= 0
+    pos = labels == 1
+    obj = bce_with_logits(logits.to(torch.float32), pos.to(torch.float32))
+    loss_cls = (obj * valid).sum() / normalizer
+    target = box_ops.encode_deltas(anchors.expand_as(matched_gt),
+                                   matched_gt, box_reg_weights)
+    reg = smooth_l1(deltas.to(torch.float32), target,
+                    smooth_l1_beta).sum(-1)
+    loss_loc = (reg * pos).sum() / normalizer
+    return {"loss_rpn_cls": loss_cls, "loss_rpn_loc": loss_loc}
 
 
 def label_anchors_sampled(

@@ -172,9 +172,14 @@ def subsample_indices_draws(gen: torch.Generator, lead: tuple, n: int,
                               device=gen.device)}
 
 
+def subsample_labels_draws(gen: torch.Generator, lead: tuple, n: int):
+    """The draws ``subsample_labels`` takes for labels [*lead, n]."""
+    return {"pos_keys": _keys(gen, (*lead, n)),
+            "neg_keys": _keys(gen, (*lead, n))}
+
+
 def sample_proposals_draws(gen: torch.Generator, lead: tuple, n: int):
     """The draws ``subsample_labels`` + ``sample_fixed_indices`` take for
     [*lead, n] candidates."""
-    return {"pos_keys": _keys(gen, (*lead, n)),
-            "neg_keys": _keys(gen, (*lead, n)),
+    return {**subsample_labels_draws(gen, lead, n),
             "fill": torch.rand((*lead, n), generator=gen, device=gen.device)}

@@ -24,7 +24,8 @@ failure exits non-zero:
    ragged 50x84 grid and at ViTDet-B's global blocks (one image's 12
    heads, grid 64x128, N = 8192, head dim 64) in float32 and bfloat16,
    and in bfloat16 at one training-step launch (4 images' heads, G = 48),
-   with their achieved rate, their share of the bound and PyTorch's
+   and at ViTDet-L's (16 heads: G = 16 and G = 64), with their achieved
+   rate, their share of the bound and PyTorch's
    ``scaled_dot_product_attention`` timed beside them.
 3. Serving phase, for the flagship detector (Faster R-CNN R50-FPN,
    ``configs/cityscapes/ALDI-Best-Cityscapes.yaml``), for ViTDet-B
@@ -43,7 +44,15 @@ failure exits non-zero:
    held against its plain version on a flagship and a ConvNeXt-L
    request's real proposals. Then a tiny float32 detector of each family
    on the card is held against the same detector on the CPU (the tiny ViT
-   has 64-wide heads, so the attention kernel runs).
+   has 64-wide heads, so the attention kernel runs). Then ViTDet-L
+   (``configs/cityscapes/ALDI-Best-ViTL-Cityscapes.yaml``: 24 blocks of
+   1024, 16 heads, global blocks 5/11/17/23) as the three above, and Fast
+   R-CNN on precomputed proposals (``configs/cityscapes/Base-RCNN-FPN-
+   Cityscapes_strongaug_ema.yaml`` with MODEL.LOAD_PROPOSALS):
+   ``forward_inference(..., precomputed=)`` on 1 warm-up + 3 timed
+   requests of 8 images with 1000 proposals each (jittered gt and random
+   boxes), K2's forward once per request and no K1, K2 held against its
+   plain version at a request's proposals.
 4. Artifact phase, for R50-FPN and ViTDet-B (full width, 8
    classes, 1024x2048, bfloat16, ``seeded_weights``): the serving artifact
    exported for ``cuda`` through ``export_inference`` (the graph must call
@@ -83,7 +92,13 @@ failure exits non-zero:
    each of the warm-up step's own launches (K2: its real boxes and levels
    with the level shapes; K1: each call's anchors and gt, and its call
    site). Then a tiny float32 step on the card against the same step on
-   the CPU.
+   the CPU. Then the flagship with the dense RPN loss
+   (TPU.RPN_LOSS_IMPL "dense": the same launches per step) and its tiny
+   card-vs-CPU step; Fast R-CNN (MODEL.LOAD_PROPOSALS, 4 labeled images
+   with 2000 proposals each per step: no ``loss_rpn_*``, K2 forward and
+   backward once per step, no K1, the RPN head, which no loss reaches,
+   not asked to move); and ViTDet-L's step (K3a 20 and K3b 8 per step at
+   G = 64, K1a/K1b 3, K2 4 / 2).
 6. Trainer phase: the flagship through the training CLI,
    ``aldi_tpu_torch/tools/train_net.py`` ``main`` with
    ``configs/cityscapes/ALDI-Best-Cityscapes.yaml`` at the published
@@ -109,7 +124,16 @@ failure exits non-zero:
    and where the host waited on the card. Last, K2's forward and backward
    and K1a/K1b held against their plain versions and timed at each of
    the first run's first step's own launches (24 + 24 images: their real
-   boxes, levels, anchors and gt), as in the training phase.
+   boxes, levels, anchors and gt), as in the training phase. On the same
+   splits and reference ``.pth``: Fast R-CNN through ``train_net`` with
+   detectron2 proposal files of 2000 proposals per image
+   (DATASETS.PROPOSAL_FILES_TRAIN/_TEST, SOLVER.IMS_PER_BATCH cut to 8, 2
+   iterations and an eval of 16 images on the files' proposals: no RPN
+   loss, K2 in steps and eval, no K1); then the user tools' ``main`` on
+   the card (``aldi_tpu_torch/tools/calibrate_threshold.py``,
+   ``debug_pipeline.py``, ``visualize_featurespace.py``): a finite
+   recommended threshold or none, the weak, strong and pseudo-labeled
+   PNGs, finite PCA coordinates.
 7. Data-parallel phase (``aldi_tpu_torch/parallel/mesh.py``): the
    flagship's DAOD step (4 + 4 images of 1024x2048, bf16) without a process
    group and then with a world-1 NCCL group, bitwise equal (losses and
@@ -180,7 +204,8 @@ failure exits non-zero:
    scipy's times; the artifact as in phase 4 (no kernel op in the graph);
    and a tiny float32 DETR, the shipped variant and WITH_BOX_REFINE +
    TWO_STAGE, on the card against the CPU (a request and one DAOD step).
-10. Print the whole run's seconds, the card line, a ``{"kernels": [...]}``
+10. Print the whole run's seconds (and those of the Fast R-CNN, dense RPN,
+   ViTDet-L and tools phases), the card line, a ``{"kernels": [...]}``
    line (the six kernels and K4) and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -218,8 +243,17 @@ DETR_TWO_STAGE = {"MODEL.DEFORMABLE_DETR.WITH_BOX_REFINE": True,
 # DOMAIN_ADAPT.ALIGN at its defaults
 ALIGN = {"DOMAIN_ADAPT.ALIGN.IMG_DA_ENABLED": True,
          "DOMAIN_ADAPT.ALIGN.INS_DA_ENABLED": True}
-VIT_GRID = (64, 128)  # ViTDet-B's stride-16 grid of the 1024x2048 canvas
+VITL_ALDI = os.path.join(ROOT, "configs", "cityscapes",
+                         "ALDI-Best-ViTL-Cityscapes.yaml")
+# Fast R-CNN on precomputed proposals: the supervised strong-augmentation
+# + EMA recipe (labeled_strong only) with MODEL.LOAD_PROPOSALS
+FAST_RCNN = os.path.join(ROOT, "configs", "cityscapes",
+                         "Base-RCNN-FPN-Cityscapes_strongaug_ema.yaml")
+FAST_RCNN_ON = {"MODEL.LOAD_PROPOSALS": True}
+DENSE_RPN = {"TPU.RPN_LOSS_IMPL": "dense"}
+VIT_GRID = (64, 128)  # ViTDet's stride-16 grid of the 1024x2048 canvas
 VIT_HEADS = 12  # one image's heads: G = 12
+VITL_HEADS = 16  # ViTDet-L's: G = 16
 BATCH = 8  # the evaluator's default batch size
 TIMED_REQUESTS = 3
 TRAIN_IMAGES = 4  # per stream: SOLVER.IMS_PER_BATCH 8 = 4 labeled + 4 unlabeled
@@ -1018,12 +1052,17 @@ def params_of(module):
 
 
 def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
-                   per_step=None):
+                   per_step=None, absent=()):
     """The DAOD step of ``config`` (with ``overrides``) at full width
     through its entry points (see the module docstring). ``per_step``:
-    {kernel name: launches per step} that the timed steps must show.
-    Returns the launch counts of the timed steps, K2's and K1's numbers at
-    the step's own launches and those launches (``KernelLaunches``)."""
+    {kernel name: launches per step} that the timed steps must show;
+    ``absent``: kernels they must not launch. Under MODEL.LOAD_PROPOSALS
+    each labeled image carries PRECOMPUTED_PROPOSAL_TOPK_TRAIN proposals
+    (``synthetic_proposals``), no ``loss_rpn_*`` may appear, and the RPN
+    head, which no loss reaches, is left out of the parameters that must
+    move. Returns the launch counts of the timed steps, K2's and K1's
+    numbers at the step's own launches and those launches
+    (``KernelLaunches``)."""
     import torch
 
     from aldi_tpu_torch.engine.train_step import (create_train_state,
@@ -1033,11 +1072,15 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
 
     cfg = config_of(config, overrides)
     name = model_name(cfg)
+    flags = stream_flags(cfg)
+    if flags.distill or flags.align:
+        images = (f"{2 * TRAIN_IMAGES} ({TRAIN_IMAGES} labeled + "
+                  f"{TRAIN_IMAGES} unlabeled images per step)")
+    else:
+        images = f"{TRAIN_IMAGES} (labeled images per step)"
     print(f"[train] {name} reduction: SOLVER.IMS_PER_BATCH "
-          f"{cfg.SOLVER.IMS_PER_BATCH}"
-          f" -> {2 * TRAIN_IMAGES} ({TRAIN_IMAGES} labeled + {TRAIN_IMAGES} "
-          f"unlabeled images per step); widths, depth and canvas as "
-          f"published", flush=True)
+          f"{cfg.SOLVER.IMS_PER_BATCH} -> {images}; widths, depth and "
+          f"canvas as published", flush=True)
     cfg.SOLVER.IMS_PER_BATCH = 2 * TRAIN_IMAGES
     t0 = time.perf_counter()
     det = build_detector(cfg)
@@ -1048,6 +1091,12 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
     batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
                                      det.num_classes, TRAIN_IMAGES)
                for _ in range(n_steps)]
+    if cfg.MODEL.LOAD_PROPOSALS:
+        for b in batches:
+            lab = b["labeled"]
+            lab["pboxes"], lab["pvalid"] = synthetic_proposals(
+                gen, lab["boxes"], lab["valid"], lab["sizes"],
+                cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
     draws = [draw_step(gen, det, TRAIN_IMAGES, TRAIN_IMAGES)
              for _ in range(n_steps)]
     torch.cuda.synchronize()
@@ -1082,7 +1131,7 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
         fail(f"{name}: {len(recorded.copies)} box-head calls copy pyramid "
              f"levels before K2 (a stream's features are not NHWC)")
 
-    for k in kernels:
+    for k in (*kernels, *absent):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times, metrics = [], []
@@ -1107,6 +1156,11 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
     for kname, n in launches.items():
         if n == 0:
             fail(f"the {name} training path never launched {kname}")
+    no_launches(f"{name} training", absent)
+    if cfg.MODEL.LOAD_PROPOSALS and any(k.startswith("loss_rpn")
+                                        for k in metrics[-1]):
+        fail(f"{name}: RPN losses under MODEL.LOAD_PROPOSALS: "
+             f"{sorted(metrics[-1])}")
     for kname, n in (per_step or {}).items():
         if launches[kname] != n * TIMED_STEPS:
             fail(f"{name}: {launches[kname]} launches of {kname} in "
@@ -1125,15 +1179,20 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
                                               for mm in metrics)
                           for k in sorted(want)), flush=True)
     moved = frozen_moved = 0
+    # under MODEL.LOAD_PROPOSALS no loss reaches the RPN head: its zero
+    # gradient moves it by weight decay alone, below float32's step at
+    # the warm-up's learning rates
+    idle = ("proposal_generator.",) if cfg.MODEL.LOAD_PROPOSALS else ()
     for pname, p in state.student.named_parameters():
         changed = not torch.equal(p.detach(), start[pname])
         if not p.requires_grad:
             frozen_moved += changed
-        else:
+        elif not pname.startswith(idle):
             moved += changed
     if frozen_moved:
         fail(f"{frozen_moved} frozen parameters moved")
-    n_trainable = sum(p.requires_grad for p in state.student.parameters())
+    n_trainable = sum(p.requires_grad and not n.startswith(idle)
+                      for n, p in state.student.named_parameters())
     n_frozen = sum(not p.requires_grad for p in state.student.parameters())
     if moved < n_trainable:
         fail(f"only {moved} of {n_trainable} trainable parameters moved")
@@ -1142,7 +1201,8 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
           f"{', '.join(f'{x:.2f}' for x in times)} (median {med:.2f}), "
           f"{2 * TRAIN_IMAGES * 1e3 / med:.2f} images/s at the median; "
           f"launches {launches}; peak device memory {peak:.2f} GiB; "
-          f"num_pseudo_labels {[mm['num_pseudo_labels'] for mm in metrics]}; "
+          f"num_pseudo_labels "
+          f"{[mm.get('num_pseudo_labels', 0.0) for mm in metrics]}; "
           f"{moved} of {n_trainable} trainable parameters moved, "
           f"{n_frozen} frozen ones did not; card {card}", flush=True)
     print(f"[train] {name}, losses of the last timed step: " + json.dumps(
@@ -2287,12 +2347,15 @@ TRAINER_KEYS = {
     "loss_roih_l1_distill"}
 
 
-def trainer_phase(card, kernels):
+def trainer_phase(card, kernels, then=None):
     """The flagship trained, checkpointed, resumed and evaluated through
     ``aldi_tpu_torch/tools/train_net.py`` ``main`` at the published
-    SOLVER.IMS_PER_BATCH 48 (see the module docstring). Returns the launch
-    counts of the first run's training steps and of its evaluation, and
-    the first step's recorded K1 and K2 launches (``KernelLaunches``)."""
+    SOLVER.IMS_PER_BATCH 48 (see the module docstring). ``then``, if
+    given, is called with {"tmp", "names", "weights"} (the synthetic
+    splits' directory and registered names, the reference ``.pth``) before
+    they are deleted. Returns the launch counts of the first run's
+    training steps and of its evaluation, and the first step's recorded K1
+    and K2 launches (``KernelLaunches``)."""
     import gc
     import shutil
     import tempfile
@@ -2510,9 +2573,304 @@ def trainer_phase(card, kernels):
                       + f"; card {card}", flush=True)
             probe.reset(None)
         release()
+        if then is not None:
+            then({"tmp": tmp, "names": names, "weights": weights})
+            release()
         return launches, eval_launches, probe.recorded.launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------- Fast R-CNN and the user tools
+def synthetic_proposals(gen, boxes, valid, sizes, k):
+    """[B, k, 4] float32 proposals per image, as a proposal file gives them
+    after the loader's top-k: each valid gt box jittered 8 times (6 px),
+    then random boxes of 16-512 px; clipped to the image, with their
+    validity (non-empty after the clip)."""
+    import torch
+
+    b, g = valid.shape
+    dev = boxes.device
+    hw = sizes.to(torch.float32)
+    wh = hw.flip(-1)[:, None]  # (w, h)
+    xy = torch.rand((b, k, 2), generator=gen, device=dev) * wh * 0.9
+    side = 16 + torch.rand((b, k, 2), generator=gen, device=dev) * 496
+    props = torch.cat([xy, xy + side], -1)
+    n_jit = min(8 * g, k) // g
+    jit = (boxes[:, :, None] + torch.randn((b, g, n_jit, 4), generator=gen,
+                                           device=dev) * 6.0
+           ).reshape(b, g * n_jit, 4)
+    use = valid[:, :, None].expand(b, g, n_jit).reshape(b, g * n_jit)
+    props[:, :g * n_jit] = torch.where(use[..., None], jit,
+                                       props[:, :g * n_jit])
+    lim = torch.cat([wh, wh], -1)
+    props = torch.minimum(props.clamp(min=0), lim)
+    pvalid = ((props[..., 2] - props[..., 0] > 0.5)
+              & (props[..., 3] - props[..., 1] > 0.5))
+    return props.contiguous(), pvalid
+
+
+def write_proposal_file(records, path, n, seed):
+    """A detectron2 proposal pickle at ``path`` for ``records``: per image
+    its gt boxes (objectness logit 4), each jittered 10 times by 2 px
+    (logit 2 + noise) and random boxes (logit N(-1, 0.5)) up to ``n``
+    proposals, as ``tests/test_proposals.py`` makes them."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids, boxes, logits = [], [], []
+    for r in records:
+        gt = np.array([a["bbox"] for a in r["annotations"]],
+                      np.float32).reshape(-1, 4)
+        gt[:, 2:] += gt[:, :2]
+        jit = (np.repeat(gt, 10, 0)
+               + rng.normal(0, 2.0, (10 * len(gt), 4))).astype(np.float32)
+        m = n - len(gt) - len(jit)
+        w, h = r["width"], r["height"]
+        neg = np.stack([rng.uniform(0, w * 0.6, m),
+                        rng.uniform(0, h * 0.6, m),
+                        rng.uniform(w * 0.4, w, m),
+                        rng.uniform(h * 0.4, h, m)], 1).astype(np.float32)
+        ids.append(r["image_id"])
+        boxes.append(np.concatenate([gt, jit, neg]))
+        logits.append(np.concatenate([
+            np.full(len(gt), 4.0, np.float32),
+            2.0 + rng.normal(0, 0.1, len(jit)).astype(np.float32),
+            rng.normal(-1, 0.5, m).astype(np.float32)]))
+    with open(path, "wb") as f:
+        pickle.dump({"ids": ids, "boxes": boxes, "objectness_logits": logits,
+                     "bbox_mode": 0}, f)
+
+
+def fast_rcnn_serving_phase(card, kernels):
+    """Fast R-CNN inference (MODEL.LOAD_PROPOSALS) at full width: the
+    R50-FPN of ``FAST_RCNN`` (8 classes, 1024x2048, bfloat16,
+    ``seeded_weights``) through ``forward_inference(..., precomputed=)``
+    on requests of 8 images with PRECOMPUTED_PROPOSAL_TOPK_TEST (1000)
+    proposals each (``synthetic_proposals`` around 5-30 boxes per image):
+    1 warm-up + 3 timed requests, outputs checked, K2's forward once per
+    request and no other kernel, K2 held against its plain version at a
+    request's own proposals, a traced request. Returns the timed requests'
+    launch counts and K2's numbers."""
+    import torch
+
+    from aldi_tpu_torch.models import build_detector
+    from aldi_tpu_torch.ops.roi_align import box_levels
+
+    cfg = config_of(FAST_RCNN, FAST_RCNN_ON)
+    name = model_name(cfg)
+    det = build_detector(cfg)
+    det.module.load_state_dict(seeded_weights(det, seed=0))
+    k = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    requests = []
+    for _ in range(1 + TIMED_REQUESTS):
+        images, sizes = synthetic_request(gen, det.canvas)
+        n_gt = torch.randint(5, 31, (BATCH,), generator=gen, device="cuda")
+        gt, _, gt_valid = synthetic_gt(gen, BATCH, cfg.TPU.MAX_GT,
+                                       (det.canvas[0] - 124,
+                                        det.canvas[1] - 248), n_valid=n_gt)
+        pboxes, pvalid = synthetic_proposals(gen, gt, gt_valid, sizes, k)
+        requests.append((images, sizes, {"boxes": pboxes, "valid": pvalid}))
+
+    def fn(images, sizes, pre):
+        out = det.forward_inference(images, sizes, precomputed=pre)
+        return dict(zip(("boxes", "scores", "classes", "valid"), out))
+
+    fn(*requests[0])
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    latencies, n_det = [], 0
+    for images, sizes, pre in requests[1:]:
+        t0 = time.perf_counter()
+        out = fn(images, sizes, pre)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        n_det += check_detections(out, sizes, det.num_classes,
+                                  cfg.TEST.DETECTIONS_PER_IMAGE)
+    launches = {kern.name: kern.launches for kern in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {kern.name: 0 for kern in kernels}
+    want["roi_align_fwd"] = TIMED_REQUESTS
+    if launches != want:
+        fail(f"{name} serving: launches {launches}, expected {want}")
+    if n_det == 0:
+        fail(f"{name}: no valid detections in any request")
+    med = median(latencies)
+    print(f"[serving] {name} on precomputed proposals ({k} per image), "
+          f"{TIMED_REQUESTS} requests of {BATCH} images: latency ms "
+          f"{fmt(latencies)} (median {med:.2f}), "
+          f"{BATCH * 1e3 / med:.2f} images/s at the median; {n_det} valid "
+          f"detections; launches {launches}; peak device memory "
+          f"{peak:.2f} GiB; card {card}", flush=True)
+    images, sizes, pre = requests[-1]
+    with torch.inference_mode():
+        feats = det.backbone(det.preprocess(images))
+    feats = [f.contiguous() for f in feats[:-1]]
+    pboxes = pre["boxes"].float().contiguous()
+    numbers = check_roi(f"{name} request, file proposals", feats, pboxes,
+                        box_levels(pboxes, pre["valid"], det.roi_strides))
+    del feats
+    traced = device_busy(lambda: fn(images, sizes, pre))
+    if traced is not None:
+        busy, top, _, _ = traced
+        print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
+              f"of the {med:.2f} ms median request, idle share "
+              f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
+              + "; ".join(f"{kn[:60]} {ms:.2f} ms x{n}" for kn, ms, n in top),
+              flush=True)
+    del det, requests, out
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def fast_rcnn_trainer(card, kernels, data):
+    """Fast R-CNN through ``train_net`` ``main`` (``FAST_RCNN`` with
+    MODEL.LOAD_PROPOSALS) on the trainer phase's synthetic splits (``data``
+    of ``trainer_phase``'s ``then``) with detectron2 proposal files of 2000
+    proposals per image (``write_proposal_file``): SOLVER.IMS_PER_BATCH 8
+    (cut from 48), 2 iterations from the reference ``.pth``, a checkpoint
+    and an eval at 2. Checks: no RPN loss in ``metrics.json``, finite
+    losses, a finite bbox/AP50, the eval's requests on the file's
+    proposals (``precomputed`` in every ``forward_inference`` call), K2
+    forward and backward in the steps, K2 forward in the eval, no K1.
+    Returns the launch counts of the steps and of the eval."""
+    import torch
+
+    from aldi_tpu_torch.data.catalog import DatasetCatalog
+    from aldi_tpu_torch.models.rcnn import RCNNDetector
+    from aldi_tpu_torch.tools import train_net
+
+    t0 = time.perf_counter()
+    tmp, names = data["tmp"], data["names"]
+    files = {}
+    for split, seed in (("train", 7), ("val", 8)):
+        files[split] = os.path.join(tmp, f"proposals_{split}.pkl")
+        write_proposal_file(DatasetCatalog.get(names[split]), files[split],
+                            2000, seed)
+    out = os.path.join(tmp, "fast_rcnn")
+    opts = {"MODEL.LOAD_PROPOSALS": True, "MODEL.WEIGHTS": data["weights"],
+            "DATASETS.TRAIN": f"('{names['train']}',)",
+            "DATASETS.TEST": f"('{names['val']}',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN": f"('{files['train']}',)",
+            "DATASETS.PROPOSAL_FILES_TEST": f"('{files['val']}',)",
+            "SOLVER.IMS_PER_BATCH": 8, "SOLVER.MAX_ITER": 2,
+            "SOLVER.CHECKPOINT_PERIOD": 2, "TEST.EVAL_PERIOD": 2,
+            "OUTPUT_DIR": out}
+    args = train_net.default_argument_parser().parse_args(
+        ["--config-file", FAST_RCNN]
+        + [str(x) for kv in opts.items() for x in kv])
+    calls = {"precomputed": 0, "rpn": 0}
+    infer = RCNNDetector.forward_inference
+
+    def counted(det, images, sizes, precomputed=None, **kwargs):
+        calls["rpn" if precomputed is None else "precomputed"] += 1
+        return infer(det, images, sizes, precomputed, **kwargs)
+
+    RCNNDetector.forward_inference = counted
+    try:
+        with TrainerProbe(kernels) as probe:
+            results = train_net.main(args)
+            launches = probe.step_launches()
+            eval_launches = dict(probe.eval_launches)
+    finally:
+        RCNNDetector.forward_inference = infer
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.json")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = [k for k in lines[-1] if k.startswith("loss")]
+    if not losses or any("rpn" in k for k in losses):
+        fail(f"Fast R-CNN trainer: losses {losses} (none of the RPN's "
+             f"expected)")
+    if not all(math.isfinite(m[k]) for m in lines for k in losses):
+        fail("Fast R-CNN trainer: non-finite losses")
+    ap = results.get(names["val"], {})
+    if not math.isfinite(ap.get("bbox/AP50", float("nan"))):
+        fail(f"Fast R-CNN trainer: no finite bbox/AP50: {results}")
+    if calls["rpn"] or not calls["precomputed"]:
+        fail(f"Fast R-CNN eval: forward_inference calls {calls}, all on the "
+             f"file's proposals expected")
+    if (launches["match_iou"] or launches["low_quality_mask"]
+            or eval_launches["match_iou"] or not launches["roi_align_fwd"]
+            or not launches["roi_align_bwd"]
+            or not eval_launches["roi_align_fwd"]):
+        fail(f"Fast R-CNN trainer: launches in the steps {launches}, in the "
+             f"eval {eval_launches}")
+    print(f"[trainer] Fast R-CNN through train_net main (MODEL.LOAD_PROPOSALS, "
+          f"proposal files of 2000 per image, top "
+          f"2000 / 1000 in training / eval; SOLVER.IMS_PER_BATCH 48 -> 8): "
+          f"2 iterations and an eval of 16 images in {wall:.2f} s; images/s "
+          f"per iteration {fmt([m['images_per_sec'] for m in lines])}; "
+          f"losses of iteration 2 "
+          + json.dumps({k: round(lines[-1][k], 5) for k in losses})
+          + f"; eval {json.dumps({k: round(v, 4) for k, v in ap.items()})}, "
+          f"{calls['precomputed']} requests on the file's proposals; "
+          f"launches in the steps {launches}, in the eval {eval_launches}; "
+          f"card {card}", flush=True)
+    del results
+    torch.cuda.empty_cache()
+    return launches, eval_launches
+
+
+def tools_phase(card, data):
+    """The three user tools' ``main`` on the card (their default device) on
+    the trainer phase's synthetic splits and reference ``.pth``
+    (``data``): ``calibrate_threshold`` (the EMA teacher over the val
+    split: a finite recommended threshold or the tool's none),
+    ``debug_pipeline`` (SOLVER.IMS_PER_BATCH 8: the weak, strong and
+    pseudo-labeled PNGs written) and ``visualize_featurespace`` (8 images
+    of train and val, level p3: PCA coordinates finite, the plot or its
+    .npy written)."""
+    from aldi_tpu_torch.tools import (calibrate_threshold, debug_pipeline,
+                                      visualize_featurespace)
+
+    tmp, names, weights = data["tmp"], data["names"], data["weights"]
+    datasets = ["DATASETS.TRAIN", f"('{names['train']}',)",
+                "DATASETS.UNLABELED", f"('{names['unlabeled']}',)",
+                "DATASETS.TEST", f"('{names['val']}',)"]
+    t0 = time.perf_counter()
+    report = calibrate_threshold.main(
+        ["--config-file", FLAGSHIP, "--dataset", names["val"], "--out",
+         os.path.join(tmp, "calibration.json"), "MODEL.WEIGHTS", weights,
+         "OUTPUT_DIR", os.path.join(tmp, "calibrate"), *datasets])
+    thr = report["recommended_threshold"]
+    if thr is not None and not math.isfinite(thr):
+        fail(f"calibrate_threshold: {report}")
+    t1 = time.perf_counter()
+    out = os.path.join(tmp, "debug")
+    res = debug_pipeline.main(
+        ["--config-file", FLAGSHIP, "--out", out, "MODEL.WEIGHTS", weights,
+         "SOLVER.IMS_PER_BATCH", "8", *datasets])
+    want = {f"{kind}_{i}.png" for kind in ("weak", "strong", "pseudo")
+            for i in range(4)}
+    if not want <= set(os.listdir(out)):
+        fail(f"debug_pipeline wrote {sorted(os.listdir(out))}")
+    t2 = time.perf_counter()
+    plot = os.path.join(tmp, "featurespace.png")
+    xy = visualize_featurespace.main(
+        ["--config-file", FLAGSHIP, "--weights", weights, "--datasets",
+         names["train"], names["val"], "--num-images", "8", "--level", "1",
+         "--out", plot])
+    import numpy as np
+
+    if xy.shape != (16, 2) or not np.isfinite(xy).all() or not (
+            os.path.exists(plot) or os.path.exists(plot + ".npy")):
+        fail(f"visualize_featurespace: coordinates {xy.shape}, finite "
+             f"{bool(np.isfinite(xy).all())}")
+    t3 = time.perf_counter()
+    print(f"[tools] calibrate_threshold (the EMA teacher over 16 images): "
+          f"{t1 - t0:.2f} s, {report['detections']} detections, score "
+          f"percentiles {report['score_percentiles']}, recommended "
+          f"threshold {thr}; debug_pipeline (4 + 4 images): {t2 - t1:.2f} s, "
+          f"{len(want)} PNGs, pseudo-labels per image "
+          f"{res['metrics']['num_pseudo_labels']:.2f}; "
+          f"visualize_featurespace (8 + 8 images, p3): {t3 - t2:.2f} s, "
+          f"wrote {'the plot' if os.path.exists(plot) else 'the .npy'}; "
+          f"card {card}", flush=True)
 
 
 # ---------------------------------------------------------------- YOLOv5
@@ -2628,6 +2986,12 @@ def dp_steps(rank, world, config, overrides, n_steps, seed,
     batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
                                      det.num_classes, TRAIN_IMAGES)
                for _ in range(n_steps)]
+    if cfg.MODEL.LOAD_PROPOSALS:
+        for b in batches:
+            lab = b["labeled"]
+            lab["pboxes"], lab["pvalid"] = synthetic_proposals(
+                gen, lab["boxes"], lab["valid"], lab["sizes"],
+                cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
     draws = [draw_step(gen, det, TRAIN_IMAGES, TRAIN_IMAGES)
              for _ in range(n_steps)]
     kernels = (match_iou, low_quality_mask, roi_align_fwd, roi_align_bwd)
@@ -4151,7 +4515,9 @@ CONVNEXT_SIZES = {(96, 9): "T", (96, 27): "S", (128, 27): "B",
 
 def model_name(cfg):
     """"R50-FPN", "ConvNeXt-L", "ViTDet-B" or "YOLOv5-m" for the log
-    lines, with " align" when a discriminator is on."""
+    lines, "Fast R-CNN " before it under MODEL.LOAD_PROPOSALS, " dense RPN"
+    after it with the dense RPN loss and " align" when a discriminator is
+    on."""
     name = cfg.MODEL.BACKBONE.NAME
     if cfg.MODEL.META_ARCHITECTURE == "DeformableDETR":
         dd = cfg.MODEL.DEFORMABLE_DETR
@@ -4169,6 +4535,10 @@ def model_name(cfg):
             (c.DIMS[0], c.DEPTHS[2]), "tiny")
     else:
         out = f"R{cfg.MODEL.RESNETS.DEPTH}-FPN"
+    if cfg.MODEL.LOAD_PROPOSALS:
+        out = "Fast R-CNN " + out
+    if cfg.TPU.RPN_LOSS_IMPL != "sampled":
+        out += " dense RPN"
     a = cfg.DOMAIN_ADAPT.ALIGN
     return out + (" align" if a.IMG_DA_ENABLED or a.INS_DA_ENABLED else "")
 
@@ -4251,6 +4621,20 @@ def main():
     check_attn("ViTDet-B step launch", torch.bfloat16, *VIT_GRID,
                4 * VIT_HEADS, seed=25, kernel_iters=5, plain_iters=1,
                library=True)
+    # ViTDet-L's global blocks: one image's 16 heads (a request's launch)
+    # and 4 images' (G = 64, a training step's launch), SDPA beside each
+    t_vitl = time.perf_counter()
+    vitl_attn = {
+        "G=16 (one image, a request's launch)": check_attn(
+            "ViTDet-L flagship shapes", torch.bfloat16, *VIT_GRID,
+            VITL_HEADS, seed=27, kernel_iters=10, plain_iters=1,
+            library=True),
+        "G=64 (4 images, a step's launch)": check_attn(
+            "ViTDet-L step launch", torch.bfloat16, *VIT_GRID,
+            4 * VITL_HEADS, seed=28, kernel_iters=5, plain_iters=1,
+            library=True)}
+    print(f"[time] the ViTDet-L attention checks took "
+          f"{time.perf_counter() - t_vitl:.1f} s", flush=True)
     # K4: the published 16 + 16 chunk's 96 problems (6 layers x 16 images)
     # of 100 gt rows x 300 queries, with deliberate ties
     k4_synthetic = check_lapjv(
@@ -4266,6 +4650,16 @@ def main():
                                   [roi_align_fwd, flash_attn_fwd]),
         "ConvNeXt-L": serving_phase(card, CONVNEXT_ALDI, [roi_align_fwd],
                                     {})}
+    t_new = time.perf_counter()
+    serving_launches["ViTDet-L"] = serving_phase(
+        card, VITL_ALDI, [roi_align_fwd, flash_attn_fwd])
+    print(f"[time] the ViTDet-L serving phase took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    t_new = time.perf_counter()
+    fast_rcnn_serving, fast_rcnn_roi = fast_rcnn_serving_phase(
+        card, flagship_kernels)
+    print(f"[time] the Fast R-CNN serving phase took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     tiny_reference_check()
     with tiny_vit():
         tiny_reference_check(VIT_ALDI)
@@ -4307,10 +4701,52 @@ def main():
             **per_step, "roi_align_fwd": 5, "roi_align_bwd": 3})
     torch.cuda.empty_cache()
     tiny_train_reference_check(FLAGSHIP, ALIGN)
+    # the dense RPN loss (TPU.RPN_LOSS_IMPL "dense"): the same launches
+    t_new = time.perf_counter()
+    dense_launches, dense_step_kernels, _ = training_phase(
+        card, flagship_kernels, FLAGSHIP, DENSE_RPN, per_step=per_step)
+    torch.cuda.empty_cache()
+    tiny_train_reference_check(FLAGSHIP, DENSE_RPN)
+    print(f"[time] the dense RPN phase took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    # Fast R-CNN (MODEL.LOAD_PROPOSALS): the labeled_strong stream's ROIs
+    # on the proposals, K2 forward and backward once per step, no K1
+    t_new = time.perf_counter()
+    fast_rcnn_launches, fast_rcnn_step_kernels, _ = training_phase(
+        card, [roi_align_fwd, roi_align_bwd], FAST_RCNN, FAST_RCNN_ON,
+        per_step={"roi_align_fwd": 1, "roi_align_bwd": 1},
+        absent=[match_iou, low_quality_mask])
+    fast_rcnn_launches.update(match_iou=0, low_quality_mask=0)
+    torch.cuda.empty_cache()
+    print(f"[time] the Fast R-CNN training phase took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    # ViTDet-L: the same launches as ViTDet-B (4 global blocks), K3a/K3b
+    # at G = 64 per step launch
+    t_new = time.perf_counter()
+    vitl_launches, vitl_step_kernels, _ = training_phase(
+        card, vit_kernels, VITL_ALDI, per_step={
+            **per_step, "flash_attn_fwd": 20, "flash_attn_bwd": 8})
+    torch.cuda.empty_cache()
+    print(f"[time] the ViTDet-L training phase took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
-    # -- 6. trainer phase: the training CLI at the published batch
+    # -- 6. trainer phase: the training CLI at the published batch; then,
+    # on its splits and reference weights, Fast R-CNN through the CLI and
+    # the three user tools
+    extra = {}
+
+    def on_trainer_data(data):
+        t_new = time.perf_counter()
+        extra["fast_rcnn"] = fast_rcnn_trainer(card, flagship_kernels, data)
+        print(f"[time] the Fast R-CNN trainer phase took "
+              f"{time.perf_counter() - t_new:.1f} s", flush=True)
+        t_new = time.perf_counter()
+        tools_phase(card, data)
+        print(f"[time] the tools phase took "
+              f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
     trainer_launches, eval_launches, recorded = trainer_phase(
-        card, flagship_kernels)
+        card, flagship_kernels, then=on_trainer_data)
     # K1 and K2 held against their plain versions at the trainer's first
     # step's own launches (24 + 24 images)
     trainer_kernels = time_step_launches("R50-FPN trainer", recorded)
@@ -4379,6 +4815,12 @@ def main():
                                 eval_launches["roi_align_fwd"]},
                **{f"R50-FPN world 2 training, rank {r} (2 steps)": c
                   for r, c in enumerate(dp_launches)},
+               "R50-FPN dense RPN training": dense_launches,
+               "Fast R-CNN training": fast_rcnn_launches,
+               "Fast R-CNN serving": fast_rcnn_serving,
+               "Fast R-CNN trainer": extra["fast_rcnn"][0],
+               "Fast R-CNN trainer eval": extra["fast_rcnn"][1],
+               "ViTDet-L training": vitl_launches,
         **{f"{m} serving": v for m, v in serving_launches.items()},
         **{f"{m} artifact": v for m, v in artifact_launches.items()},
         **yolo_launches, **detr_launches}
@@ -4411,7 +4853,16 @@ def main():
                                   convnext_step_kernels),
                                  ("R50-FPN align training",
                                   align_step_kernels),
-                                 ("R50-FPN trainer", trainer_kernels))}
+                                 ("R50-FPN trainer", trainer_kernels),
+                                 ("R50-FPN dense RPN training",
+                                  dense_step_kernels),
+                                 ("Fast R-CNN training",
+                                  fast_rcnn_step_kernels),
+                                 ("ViTDet-L training", vitl_step_kernels))}
+        if k.name == "roi_align_fwd":
+            entry["fast_rcnn_request"] = fast_rcnn_roi
+        if k.name in ("flash_attn_fwd", "flash_attn_bwd"):
+            entry["vitdet_l"] = {g: n[k.name] for g, n in vitl_attn.items()}
         entries.append(entry)
     # K4: launches from the DETR training steps; the numbers of the warm-up
     # step's first launch (the labeled_strong stream's 24 problems)

@@ -414,12 +414,15 @@ def test_train_state_round_trips_jax_variables(dets):
 
 # ------------------------------------------------------------ the rules
 @pytest.mark.parametrize("key,value", [
-    ("TPU.RPN_LOSS_IMPL", "dense"),
+    ("MODEL.LOAD_PROPOSALS", True),
 ])
 def test_unported_training_configs_raise(key, value):
+    """The training options the port refuses are the JAX package's own
+    rules: precomputed proposals (``MODEL.LOAD_PROPOSALS``) with the
+    flagship's distill stream is supervised-only."""
     cfg = daod_cfg(port_get_cfg, **{key: value})
     det = build_detector(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="supervised-only"):
         make_train_step(cfg, det)
 
 

@@ -18,6 +18,8 @@ another order in each framework, about 1e-6 relative per layer); the whole
 ``forward_inference`` boxes 1e-3 px and scores 1e-5, where ``valid``.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +71,21 @@ def _port_weights(module, tree, prefix):
 
 
 # ------------------------------------------------- (a) flash attention
+@contextlib.contextmanager
+def _own_compiles():
+    """JAX's persistent compilation cache off for the duration. Under
+    xdist it is on in the workers (they inherit the conftest's
+    JAX_COMPILATION_CACHE_DIR before JAX is imported) and off in a process
+    run alone (set after the import): the interpret-mode kernels then
+    compile in this process either way."""
+    saved = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", saved)
+
+
 def _attn_inputs(seed, g, hg, wg, d=64):
     rng = np.random.RandomState(seed)
     n = hg * wg
@@ -88,10 +105,14 @@ def test_flash_attention_and_grads_match_pallas(hg, wg, g):
     def jax_loss(a):
         return (jax_attn(*a, scale, hg, wg, interpret=True) * co).sum()
 
-    want_out = jax_attn(*map(jnp.asarray, args), scale, hg, wg,
-                        interpret=True)
-    want_grads = jax.grad(jax_loss)(tuple(map(jnp.asarray, args)))
-    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    # the JAX reference first, whole: on buffers of its own (jnp.asarray
+    # may alias the numpy inputs that the tensors below share), compiled
+    # in this process and read back before PyTorch runs
+    jargs = tuple(jnp.array(a, copy=True) for a in args)
+    with _own_compiles():
+        want_out = np.array(jax_attn(*jargs, scale, hg, wg, interpret=True))
+        want_grads = [np.array(w) for w in jax.grad(jax_loss)(jargs)]
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
     before = (flash_attn_fwd.launches, flash_attn_bwd.launches)
     out = flash_attention_relpos(*ts, scale, hg, wg)
     (out * torch.from_numpy(co)).sum().backward()

@@ -164,6 +164,18 @@ def loader_cfg(cfg, names):
     return cfg
 
 
+def port_state_as_reference(module):
+    """The port's state dict in detectron2's layout (the box head's fc1
+    input channel-major), as numpy, for the JAX package's converter."""
+    sd = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
+    w = sd["roi_heads.box_head.fc1.weight"]
+    out_dim, in_dim = w.shape
+    sd["roi_heads.box_head.fc1.weight"] = np.ascontiguousarray(
+        w.reshape(out_dim, 7, 7, in_dim // 49).transpose(0, 3, 1, 2)
+        .reshape(out_dim, in_dim))
+    return sd
+
+
 def drop_weight_files(root):
     """Delete the ``.pth`` and ``.pkl`` files under ``root``: a test's
     checkpoints of a full-width ResNet take hundreds of MB each, and pytest

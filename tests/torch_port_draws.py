@@ -5,7 +5,8 @@ Each function mirrors the key splits of one JAX consumer and returns the
 draws, as torch tensors, in the layout the port's function takes:
 ``aldi_tpu/ops/matcher.py:116-141`` (``subsample_indices``) and ``:154-199``
 (``subsample_labels``), ``:211`` (``sample_fixed_indices``),
-``aldi_tpu/models/rpn.py:179-201`` (``label_anchors_sampled``),
+``aldi_tpu/models/rpn.py:179-201`` (``label_anchors_sampled``) and
+``:64-116`` (``label_anchors``, the dense loss's),
 ``aldi_tpu/models/roi_heads.py:98-123`` (``sample_proposals``),
 ``aldi_tpu/models/rcnn.py:410`` (``forward_train``),
 ``aldi_tpu/data/strong_aug.py:43-157`` (``strong_augment``),
@@ -62,6 +63,14 @@ def label_anchors_draws(key, batch, n, batch_size_per_image,
         out.append(subsample_indices_draws(jax.random.fold_in(k_sub, 0), n,
                                            k, positive_fraction))
     return _stack(out)
+
+
+def label_anchors_dense_draws(key, batch, n):
+    """``rpn.label_anchors(key, anchors [n], gt [batch])`` (the dense RPN
+    loss): one key per image from ``split(key, batch)``, straight into
+    ``subsample_labels``."""
+    return _stack([subsample_labels_draws(k, n)
+                   for k in jax.random.split(key, batch)])
 
 
 def sample_proposals_draws(key, batch, n):
@@ -145,14 +154,21 @@ def forward_train_draws(rng, cfg, batch, n_anchors, drop_masks=None):
     """``RCNNDetector.forward_train(..., rng)``: the RPN and ROI samplers'
     draws, and with ``drop_masks`` (``functools.partial(vit_drop_masks,
     jdet, variables)`` or ``convnext_drop_masks``) the trunk's drop-path
-    masks."""
+    masks. The RPN's are those of TPU.RPN_LOSS_IMPL's loss; under
+    MODEL.LOAD_PROPOSALS there are none, and the ROI sampler's candidates
+    are the file's top PRECOMPUTED_PROPOSAL_TOPK_TRAIN and the gt."""
     k_rpn, k_roi, k_drop = jax.random.split(rng, 3)
     rpn = cfg.MODEL.RPN
-    n_cand = rpn.POST_NMS_TOPK_TRAIN + cfg.TPU.MAX_GT
-    out = {"rpn": label_anchors_draws(k_rpn, batch, n_anchors,
-                                      rpn.BATCH_SIZE_PER_IMAGE,
-                                      rpn.POSITIVE_FRACTION),
-           "roi": sample_proposals_draws(k_roi, batch, n_cand)}
+    if cfg.MODEL.LOAD_PROPOSALS:
+        n_cand = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN + cfg.TPU.MAX_GT
+        out = {}
+    else:
+        n_cand = rpn.POST_NMS_TOPK_TRAIN + cfg.TPU.MAX_GT
+        out = {"rpn": label_anchors_draws(
+            k_rpn, batch, n_anchors, rpn.BATCH_SIZE_PER_IMAGE,
+            rpn.POSITIVE_FRACTION) if cfg.TPU.RPN_LOSS_IMPL == "sampled"
+            else label_anchors_dense_draws(k_rpn, batch, n_anchors)}
+    out["roi"] = sample_proposals_draws(k_roi, batch, n_cand)
     if drop_masks is not None:
         out["drop"] = drop_masks(k_drop, batch)
     return out
