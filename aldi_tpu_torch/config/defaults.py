@@ -333,9 +333,11 @@ def get_default_cfg() -> CN:
     # Compute dtype: "bfloat16" when SOLVER.AMP.ENABLED else "float32";
     # set explicitly to override.
     _C.TPU.COMPUTE_DTYPE = ""
-    # JAX-package settings (device mesh, gradient accumulation, host
-    # pipeline, ROIAlign and RPN-loss formulations, profiling); the port
-    # does not read them yet.
+    # The data x model grid (parallel/mesh.py): MESH_DATA ranks (0: the
+    # group's size over MESH_MODEL) of MESH_MODEL tensor-parallel ranks;
+    # FSDP shards the big parameters, the moments and the teacher over the
+    # data ranks. Then gradient accumulation, and JAX-package settings of
+    # the host pipeline, the ROIAlign and RPN-loss formulations, profiling.
     _C.TPU.MESH_DATA = 0
     _C.TPU.MESH_MODEL = 1
     _C.TPU.FSDP = False

@@ -23,7 +23,11 @@ directories are not read.
 
 Under data parallelism (``parallel/mesh.py``) rank 0 writes the files and
 every rank waits for them before it goes on; every rank loads them, onto
-its own device.
+its own device. On the data x model grid the file is world 1's all the
+same: every rank takes part in gathering the split parameters and their
+optimizer moments (``mesh.full_state_dict``), rank 0 writes; a load cuts
+world 1's tensors to the rank's parts (``mesh.local_state_dict``), so a
+checkpoint moves between world 1, tensor parallelism and FSDP both ways.
 """
 
 import json
@@ -63,22 +67,22 @@ class Checkpointer:
         "best". Rank 0 writes; every rank waits for it."""
         name = name or f"model_{state.step:07d}"
         path = os.path.join(self.dir, f"{name}.pth")
-        if mesh.is_main():
-            self._write(state, path, name, extra)
-        mesh.barrier()
-        return path
-
-    def _write(self, state, path, name, extra):
         ckpt = {
-            "model": state.student.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": mesh.full_state_dict(state.student),
+            "optimizer": full_optimizer_state(state.optimizer),
             "iteration": state.step,
             "trainer_state": extra or {},
             "__author__": AUTHOR,
         }
         if state.teacher is not None:
-            ckpt["ema"] = {_EMA_PREFIX + k: v
-                           for k, v in state.teacher.state_dict().items()}
+            ckpt["ema"] = {_EMA_PREFIX + k: v for k, v in
+                           mesh.full_state_dict(state.teacher).items()}
+        if mesh.is_main():
+            self._write(ckpt, path, name, extra)
+        mesh.barrier()
+        return path
+
+    def _write(self, ckpt, path, name, extra):
         tmp = path + ".tmp"
         torch.save(ckpt, tmp)
         os.replace(tmp, path)
@@ -105,10 +109,11 @@ class Checkpointer:
         the file's ``trainer_state``."""
         device = next(state.student.parameters()).device
         ckpt = torch.load(path, map_location=device, weights_only=True)
-        state.student.load_state_dict(ckpt["model"])
+        load_full(state.student, ckpt["model"])
         if state.teacher is not None and "ema" in ckpt:
-            state.teacher.load_state_dict(_strip_ema_prefix(ckpt["ema"]))
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+            load_full(state.teacher, _strip_ema_prefix(ckpt["ema"]))
+        state.optimizer.load_state_dict(
+            local_optimizer_state(state.optimizer, ckpt["optimizer"]))
         state.step = int(ckpt["iteration"])
         return dict(ckpt.get("trainer_state", {}))
 
@@ -127,6 +132,48 @@ class Checkpointer:
             load_reference_weights(state, weights, load_from_ema,
                                    self.logger)
         return {}
+
+
+def load_full(module: torch.nn.Module, full: dict) -> None:
+    """World 1's state dict ``full`` into ``module``, cut to the rank's
+    parts of its split parameters."""
+    module.load_state_dict(mesh.local_state_dict(module, full))
+
+
+def _optimizer_params(optimizer) -> list:
+    """The optimizer's parameters in its ``state_dict`` index order."""
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def full_optimizer_state(optimizer) -> dict:
+    """``optimizer.state_dict()`` with each moment of a split parameter
+    gathered into world 1's tensor (a collective, as
+    ``mesh.full_state_dict``)."""
+    sd = optimizer.state_dict()
+    for i, p in enumerate(_optimizer_params(optimizer)):
+        shard = mesh.shard_of(p)
+        if shard is None or i not in sd["state"]:
+            continue
+        sd["state"][i] = {k: mesh.full_tensor(v, shard)
+                          if isinstance(v, torch.Tensor)
+                          and v.shape == p.shape else v
+                          for k, v in sd["state"][i].items()}
+    return sd
+
+
+def local_optimizer_state(optimizer, full: dict) -> dict:
+    """World 1's optimizer state dict ``full`` with each moment of a split
+    parameter cut to the rank's part."""
+    state = dict(full["state"])
+    for i, p in enumerate(_optimizer_params(optimizer)):
+        shard = mesh.shard_of(p)
+        if shard is None or i not in state:
+            continue
+        state[i] = {k: mesh.local_part(v, shard)
+                    if isinstance(v, torch.Tensor)
+                    and tuple(v.shape) == shard.shape else v
+                    for k, v in state[i].items()}
+    return {**full, "state": state}
 
 
 def load_reference_weights(state: TrainState, path: str,
@@ -152,7 +199,8 @@ def load_reference_weights(state: TrainState, path: str,
             else:
                 sd = sd["model"]
     weights = reference_state_dict_to_port(
-        sd, state.student.state_dict(), logger, convert_layouts=not own)
-    state.student.load_state_dict(weights)
+        sd, mesh.full_state_dict(state.student), logger,
+        convert_layouts=not own)
+    load_full(state.student, weights)
     if state.teacher is not None:
-        state.teacher.load_state_dict(weights)
+        load_full(state.teacher, weights)

@@ -8,7 +8,11 @@ reference's ``do_postprocess`` rescale), and the COCO bbox protocol of
 slice of the test set and the predictions are gathered to every rank
 (``gather_predictions``, ``:26-82``: fixed-width rows, the image id split
 in two float32 columns, padded to the largest count, then
-``all_gather``), so every rank computes the same AP.
+``all_gather``), so every rank computes the same AP. On the data x model
+grid the slices are the data ranks' (``mesh.data_rank``): every model rank
+runs the inference of its data rank's slice (a tensor-parallel forward
+needs its whole model group), and the gather keeps the rows of model
+index 0.
 """
 
 import time
@@ -65,8 +69,8 @@ def gather_predictions(predictions: Dict[int, list]) -> Dict[int, list]:
     """All-gather per-image predictions across the ranks so that every
     rank scores the full test set (reference ``COCOEvaluator(distributed=
     True)``, ``aldi/helpers.py:77``): packed rows padded to the largest
-    count, on the group's device. At world 1 the predictions as they
-    are."""
+    count, on the group's device; of each model group the rows of its
+    model index 0. At world 1 the predictions as they are."""
     if mesh.world() == 1:
         return predictions
     dev = mesh.comm_device()
@@ -80,7 +84,9 @@ def gather_predictions(predictions: Dict[int, list]) -> Dict[int, list]:
     padded[: local.shape[0]] = local
     gathered = [torch.zeros_like(padded) for _ in range(mesh.world())]
     dist.all_gather(gathered, padded)
-    return unpack_predictions(torch.stack(gathered).cpu().numpy(), counts)
+    keep = slice(None, None, mesh.model_world())  # model index 0's ranks
+    return unpack_predictions(torch.stack(gathered[keep]).cpu().numpy(),
+                              counts[keep])
 
 
 def device_inputs(batch, device):
@@ -106,9 +112,9 @@ def inference_on_dataset(
     ``bbox/AP50``, ... keys of ``evaluate_detections`` and
     ``images_per_sec`` (host clock over the inference loop, loading
     included; the whole test set's images under data parallelism, where
-    each rank scores its strided slice)."""
+    each data rank scores its strided slice)."""
     loader = TestLoader(dataset_name, cfg, detector.canvas, batch_size,
-                        shard=(mesh.rank(), mesh.world()))
+                        shard=(mesh.data_rank(), mesh.data_world()))
     md = MetadataCatalog.get(dataset_name)
 
     predictions = defaultdict(list)

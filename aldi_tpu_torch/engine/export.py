@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from ..ops import custom_ops  # noqa: F401  (registers the kernels' ops)
+from ..parallel import mesh
 
 __all__ = ["make_serving_fn", "export_inference", "save_artifact",
            "load_artifact", "ServingModel"]
@@ -108,6 +109,11 @@ def export_inference(det, weights, batch_size, platforms=None):
     with the detector on that device (a copy where ``det`` lives
     elsewhere), as the JAX package traces each platform on its own.
     """
+    if mesh.model_world() > 1:
+        raise NotImplementedError(
+            "export_inference traces one card's whole model: under "
+            "TPU.MESH_MODEL > 1 export from the world-1 checkpoint "
+            "(tools/export_model.py) instead")
     if weights is not None:
         det.module.load_state_dict(weights)
     if platforms is None:

@@ -31,7 +31,13 @@ the rank's share of the global batch's loss (global denominators), and
 the gradients are summed across the ranks once, after the last backward
 and before clipping and the optimizer (``all_reduce_grads``): XLA's
 inserted all-reduce in the JAX package's sharded step. The metrics are
-the rank's shares; their sum over the ranks is the global batch's.
+the rank's shares; their sum over the ranks is the global batch's. On a
+data x model grid the same holds over the data group; the model group's
+collectives run inside the forward and backward (``parallel/tensor.py``),
+an FSDP shard's gradient is summed as its backward makes it
+(``parallel/fsdp.py``) and ``all_reduce_grads`` sums the others; the
+clip's norm is world 1's (``solver.py``). A model group's ranks hold the
+same batch, draws and metrics.
 
 The JAX step draws from ``jax.random``; here ``draw_step`` makes every draw
 of a step up front from a ``torch.Generator`` (static shapes: the canvas's
@@ -65,6 +71,7 @@ from ..data.strong_aug import strong_aug_draws, strong_augment
 from ..models.resnet import FrozenBN
 from ..ops.matcher import (sample_proposals_draws, subsample_indices_draws,
                            subsample_labels_draws)
+from ..parallel import fsdp, mesh, tensor
 from ..parallel.mesh import all_reduce_grads
 from ..solver import build_lr_schedule, build_optimizer, clip_gradients, set_lr
 from ..structures import Instances
@@ -115,22 +122,39 @@ def _share_frozen_buffers(dst: torch.nn.Module, src: torch.nn.Module) -> None:
                 mod._buffers[b] = src_modules[name]._buffers[b]
 
 
+def shard_for_grid(cfg, module: torch.nn.Module) -> None:
+    """Split ``module`` for the process's grid (``parallel/mesh.py``):
+    over the model group (``parallel/tensor.py``) at M > 1, then, with
+    TPU.FSDP, over the data group (``parallel/fsdp.py``) at D > 1. Without
+    a grid, or on a module already split, nothing changes."""
+    if mesh.model_world() > 1:
+        tensor.shard_module(module, mesh.model_world())
+    if cfg.TPU.FSDP and mesh.data_world() > 1:
+        fsdp.shard_module(module, mesh.data_world())
+
+
 def create_train_state(cfg, detector, weights=None,
                        teacher_weights=None) -> TrainState:
     """The training state around ``detector.module`` (the student), after
-    loading ``weights`` (a state dict) if given. With EMA the teacher is a
-    copy (``teacher_weights`` if given, else the student's), without
-    gradients, sharing the student's FrozenBN buffers and keeping its own
-    copy of every other buffer."""
+    loading ``weights`` (world 1's state dict) if given. With EMA the
+    teacher is a copy (``teacher_weights`` if given, else the student's),
+    without gradients, sharing the student's FrozenBN buffers and keeping
+    its own copy of every other buffer. On the grid both hold this rank's
+    parts (``shard_for_grid``), the optimizer steps on them."""
     student = detector.module
     if weights is not None:
-        student.load_state_dict(weights)
+        student.load_state_dict(mesh.local_state_dict(student, weights))
     teacher = None
     if cfg.EMA.ENABLED:
         teacher = copy.deepcopy(student).requires_grad_(False)
+        mesh.copy_shards(teacher, student)
         if teacher_weights is not None:
-            teacher.load_state_dict(teacher_weights)
+            teacher.load_state_dict(
+                mesh.local_state_dict(teacher, teacher_weights))
         _share_frozen_buffers(teacher, student)
+    for module in (student, teacher):
+        if module is not None:
+            shard_for_grid(cfg, module)
     return TrainState(step=0, student=student, teacher=teacher,
                       optimizer=build_optimizer(cfg, student),
                       schedule=build_lr_schedule(cfg))

@@ -27,15 +27,20 @@ too (``data/loader.py``).
 
 Data parallelism (``parallel/mesh.py``): the trainer uses the process
 group its caller made (``tools/train_net.py`` spawns one rank per GPU) or
-joins the one ``torchrun``'s environment describes. SOLVER.IMS_PER_BATCH
-stays the global batch (rescaled to the group's size by
-SOLVER.REFERENCE_WORLD_SIZE, as the JAX trainer rescales to its data
-axis); each rank loads, draws and steps on its share of it, and the step
-sums the gradients. The metrics are summed across the ranks at the write
-points only; rank 0 writes ``metrics.json``, the checkpoints and
+joins the one ``torchrun``'s environment describes, and lays its W ranks
+out as the JAX trainer lays out its mesh (``aldi_tpu/engine/trainer.py:
+92-133``): D = W / TPU.MESH_MODEL data ranks of TPU.MESH_MODEL model ranks
+each (``mesh.make_grid``), the state split over the model group
+(tensor parallelism) and, with TPU.FSDP, over the data group
+(``engine/train_step.py`` ``shard_for_grid``). SOLVER.IMS_PER_BATCH stays
+the global batch (rescaled to D by SOLVER.REFERENCE_WORLD_SIZE, as the JAX
+trainer rescales to its data axis); each data rank loads, draws and steps
+on its share of it, the ranks of a model group on the same share, and the
+step sums the gradients. The metrics are summed across the data ranks at
+the write points only; rank 0 writes ``metrics.json``, the checkpoints
+(world 1's full state dicts, gathered by every rank) and
 ``trainer_state.json``, and every rank waits for the write. Evaluation
-shards the test set and gathers the predictions. The JAX package's
-``TPU.MESH_MODEL`` and ``TPU.FSDP`` raise: ROADMAP.md queues them.
+shards the test set over the data ranks and gathers the predictions.
 """
 
 import os
@@ -81,6 +86,14 @@ def auto_scale_workers(cfg, world_size: int):
     return cfg
 
 
+def _stream_sizes(cfg):
+    """Each stream's global batch: SOLVER.IMS_PER_BATCH split by
+    DATASETS.BATCH_RATIOS."""
+    ratios = cfg.DATASETS.BATCH_RATIOS
+    total = cfg.SOLVER.IMS_PER_BATCH
+    return [int(total * r / sum(ratios)) for r in ratios]
+
+
 def trainer_device(cfg, device=None) -> torch.device:
     """``device`` if given, else MODEL.DEVICE: ``cpu`` is the CPU, anything
     else the rank's card ``cuda:LOCAL_RANK`` (raises without one); a
@@ -107,11 +120,29 @@ class ALDITrainer:
             torch.cuda.set_device(self.device)
         mesh.init_from_env(self.device.type)
         self.logger = setup_logger(cfg.OUTPUT_DIR)
-        mesh.check_data_parallel(cfg)
-        cfg = auto_scale_workers(cfg, mesh.world())
+        mesh.check_grid(cfg)
+        if mesh.world() > 1:
+            mesh.make_grid(cfg.TPU.MESH_MODEL)
+        # the reference's "world size" is the data width: a model group
+        # shares one batch slice
+        n_data, n_model = mesh.data_world(), mesh.model_world()
+        cfg = auto_scale_workers(cfg, n_data)
         if not cfg.is_frozen():
             cfg.freeze()
         self.cfg = cfg
+        if mesh.world() > 1:
+            for c, n in zip(cfg.DATASETS.BATCH_CONTENTS, _stream_sizes(cfg)):
+                if n % n_data:
+                    raise ValueError(
+                        f"stream {c} batch {n} not divisible by data-axis "
+                        f"size {n_data}; adjust SOLVER.IMS_PER_BATCH or "
+                        "TPU.MESH_*")
+            self.logger.info(
+                f"Mesh over {mesh.world()} devices: data={n_data}"
+                + (f" x model={n_model} (Megatron MLP sharding)"
+                   if n_model > 1 else "")
+                + (" + FSDP weight/optimizer sharding"
+                   if cfg.TPU.FSDP else ""))
         self.seed = cfg.SEED if cfg.SEED >= 0 else 42
         self.detector = build_detector(cfg, device=self.device,
                                        seed=self.seed)
@@ -157,7 +188,7 @@ class ALDITrainer:
         if self.loader is None:
             self.loader = WeakStrongLoader(
                 cfg, self.detector.canvas, seed=int(self.seed),
-                shard=(mesh.rank(), mesh.world()))
+                shard=(mesh.data_rank(), mesh.data_world()))
         # every rank starts from rank 0's weights
         mesh.broadcast_state(self.state.student, self.state.teacher)
         start = self.state.step

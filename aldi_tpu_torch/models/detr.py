@@ -156,7 +156,9 @@ class _Dropout:
     (``seed``, ``layer``); the identity when ``seed`` is None. ``seed`` is
     an int, or (seed, rank, world) under data parallelism: the masks are
     then drawn for ``world`` times the batch's rows and ``rank``'s rows
-    kept."""
+    kept. ``split`` (rank, M): ``x`` holds a model rank's columns of a
+    column-parallel layer's output (``parallel/tensor.py``), and its mask
+    is those columns of the mask drawn over M times as many."""
 
     def __init__(self, rate, seed, layer, device):
         self.keep = 1.0 - rate
@@ -168,12 +170,18 @@ class _Dropout:
             self.gen = torch.Generator(device=device)
             self.gen.manual_seed((int(seed) * 1_000_003 + layer) % (1 << 63))
 
-    def __call__(self, x):
+    def __call__(self, x, split=(0, 1)):
         if self.gen is None:
             return x
         b = x.shape[0]
-        mask = torch.rand((self.world * b,) + x.shape[1:], generator=self.gen,
+        col, m = split
+        shape = x.shape[1:] if m == 1 else x.shape[1:-1] + (
+            m * x.shape[-1],)
+        mask = torch.rand((self.world * b,) + shape, generator=self.gen,
                           device=x.device)[self.rank * b:(self.rank + 1) * b]
+        if m > 1:
+            n = x.shape[-1]
+            mask = mask[..., col * n:(col + 1) * n]
         mask = mask < self.keep
         return torch.where(mask, x / self.keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
@@ -273,7 +281,8 @@ class EncoderLayer(nn.Module):
         attn = self.self_attn(src + pos, reference_points, src,
                               spatial_shapes, mask)
         src = self.norm1(src + drop(attn))
-        y = self.linear2(drop(F.relu(self.linear1(src))))
+        y = self.linear2(drop(F.relu(self.linear1(src)),
+                              getattr(self.linear1, "split", (0, 1))))
         return self.norm2(src + drop(y))
 
 
@@ -299,7 +308,8 @@ class DecoderLayer(nn.Module):
         ca = self.cross_attn(tgt + query_pos, reference_points, memory,
                              spatial_shapes, mask)
         tgt = self.norm1(tgt + drop(ca))
-        y = self.linear2(drop(F.relu(self.linear1(tgt))))
+        y = self.linear2(drop(F.relu(self.linear1(tgt)),
+                              getattr(self.linear1, "split", (0, 1))))
         return self.norm3(tgt + drop(y))
 
 

@@ -40,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attn import flash_attention_relpos
+from ..parallel.tensor import copy_to_model
 from .layers import (ChannelLayerNorm, DenseConv2d, DenseConvNorm,
                      DenseLinear, LayerNorm, lecun_normal, layer_norm)
 
@@ -138,12 +139,16 @@ class Attention(nn.Module):
     """Multi-head attention with decomposed rel-pos bias over a
     [B, H, W, C] map. ``qkv`` is detectron2's [3C, C] Linear (output order
     (3, heads, head_dim)); ``use_kernel`` sends the attention through
-    ``flash_attention_relpos`` (the global blocks)."""
+    ``flash_attention_relpos`` (the global blocks). Under tensor
+    parallelism (``parallel/tensor.py``, ``model_parallel`` M) ``qkv``
+    holds this rank's ``num_heads`` of world 1's M times as many and
+    ``proj`` sums the ranks' heads."""
 
     def __init__(self, dim, num_heads, input_size, use_kernel,
                  compute_dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.model_parallel = 1
         self.head_dim = dim // num_heads
         self.use_kernel = use_kernel
         self.compute_dtype = compute_dtype
@@ -163,8 +168,11 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # [B, nh, N, hd]
         scale = hd ** -0.5
-        rh = get_rel_pos(h, h, self.rel_pos_h.float())  # [h, h, hd]
-        rw = get_rel_pos(w, w, self.rel_pos_w.float())
+        tables = self.rel_pos_h, self.rel_pos_w
+        if self.model_parallel > 1:  # every rank's heads read the tables
+            tables = tuple(copy_to_model(t) for t in tables)
+        rh = get_rel_pos(h, h, tables[0].float())  # [h, h, hd]
+        rw = get_rel_pos(w, w, tables[1].float())
         rq = q.reshape(b, nh, h, w, hd).float()
         bias_h = torch.einsum("bnhwd,hkd->bnhwk", rq, rh)
         bias_w = torch.einsum("bnhwd,wkd->bnhwk", rq, rw)

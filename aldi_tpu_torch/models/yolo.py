@@ -37,7 +37,8 @@ from ..config import compute_dtype, resolve_canvas
 from ..ops.boxes import clip_boxes
 from ..ops.losses import bce_with_logits, softmax_cross_entropy
 from ..ops.nms import batched_nms_keep_mask, top_k
-from ..parallel.mesh import batch_mean, global_batch, global_count, world
+from ..parallel.mesh import (batch_mean, data_world, global_batch,
+                             global_count)
 from .layers import DenseConv2d
 from .rcnn import ConvDiscriminator, grad_reverse
 
@@ -88,7 +89,7 @@ class _BatchNormTrain(torch.autograd.Function):
         dims = (0, 2, 3)
         xf = x.float()
         c = x.shape[1]
-        if world() == 1:
+        if data_world() == 1:
             n = x.numel() // c
             mean = xf.mean(dims)
             var = (xf.square().mean(dims) - mean.square()).clamp(min=0.0)
@@ -118,7 +119,7 @@ class _BatchNormTrain(torch.autograd.Function):
         gbias = g.sum(dims)
         gweight = (g * xhat).sum(dims)
         sums_b, sums_w = gbias, gweight
-        if world() > 1:
+        if data_world() > 1:
             sums_b, sums_w = global_count(
                 torch.cat([gbias, gweight])).split(x.shape[1])
         gx = (weight * invstd)[:, None, None] * (

@@ -1,1 +1,4 @@
-"""Data parallelism across processes, one per GPU (``parallel/mesh.py``)."""
+"""Training across processes, one per GPU: the data x model grid and its
+reductions (``parallel/mesh.py``), tensor parallelism over the model group
+(``parallel/tensor.py``) and FSDP over the data group
+(``parallel/fsdp.py``)."""

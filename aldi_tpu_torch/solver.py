@@ -32,6 +32,8 @@ from typing import Callable
 
 import torch
 
+from .parallel.mesh import sum_of_squares
+
 
 def _warmup(cfg, count: float) -> float:
     iters = cfg.SOLVER.WARMUP_ITERS
@@ -147,10 +149,12 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm``: when the global norm of the
     gradients reaches ``max_norm``, each becomes ``g / norm * max_norm``
-    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Returns the
+    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). On the grid
+    (``parallel/mesh.py``) the norm is world 1's: a split parameter's
+    squares are summed over the group that splits it. Returns the
     norm."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
+    norm = torch.sqrt(sum_of_squares(params))
     clip = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))

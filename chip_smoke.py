@@ -166,6 +166,22 @@ failure exits non-zero:
    fails, or a group not done in ``DP_TIMEOUT_S``, fails the run; the
    phase prints its seconds. The world-2 times come from two processes on
    one card: a check of correctness, not a multi-GPU speed.
+7b. Grid phase (``aldi_tpu_torch/parallel/mesh.py`` ``make_grid``,
+   ``tensor.py``, ``fsdp.py``): two gloo ranks on this card, against
+   world 1 on the same global batch of 2 + 2 images and draws, TF32 off:
+   (i) the flagship's DAOD step at TPU.MESH_MODEL 2 (both ranks on the
+   whole batch, the box head's fc1/fc2 split), float32, 2 steps, the
+   data-parallel phase's limits, the two ranks' gathered states bitwise
+   equal, K1a/K1b 3 and K2 4 / 2 launches per step on each rank; (ii)
+   ViTDet-B at M = 2, bf16, 2 steps: each rank's global blocks launch
+   K3a/K3b 20 / 8 per step at G = 12 (2 images x 6 heads), held against
+   their plain versions at that G, step ms and peak GiB per rank, the
+   first step's metrics within ``GRID_BF16_LOSS_RTOL``; (iii) ViTDet-L
+   with TPU.FSDP at D = 2 (1 + 1 per rank), bf16, 2 steps: each rank's
+   GiB of parameters, gradients, AdamW moments and teacher between steps
+   against world 1's (at most ``GRID_FSDP_SHARE`` of the parameters',
+   moments' and teacher's), peak GiB per rank, the first step's metrics.
+   The times are of two processes sharing one card.
 8. YOLO phase, YOLOv5-m of ``configs/cityscapes/ALDI-Yolo-Cityscapes.yaml``
    (depth 0.67, width 0.75, 8 classes, bfloat16, ``seeded_weights``),
    whose paths launch none of the six kernels (asserted on each path):
@@ -205,9 +221,9 @@ failure exits non-zero:
    and a tiny float32 DETR, the shipped variant and WITH_BOX_REFINE +
    TWO_STAGE, on the card against the CPU (a request and one DAOD step).
 10. Print the whole run's seconds (and those of the Fast R-CNN, dense RPN,
-   ViTDet-L and tools phases), the card line, a ``{"kernels": [...]}``
-   line (the six kernels and K4) and, last, ``{"ok": true, "device":
-   {...}}``.
+   ViTDet-L, tools and grid phases), the card line, a ``{"kernels":
+   [...]}`` line (the six kernels and K4; K3a/K3b with their numbers at
+   the grid's G = 12) and, last, ``{"ok": true, "device": {...}}``.
 
 Kernel times come from CUDA events over repeated launches; request times
 from the host clock around work that ends in ``torch.cuda.synchronize()``.
@@ -3262,11 +3278,11 @@ class DropoutDraws:
         self.cls, self.saved = detr._Dropout, detr._Dropout.__call__
         counts = self
 
-        def call(drop, x):
+        def call(drop, x, split=(0, 1)):
             if drop.gen is not None:
                 counts.calls += 1
-                counts.values += drop.world * x.numel()
-            return counts.saved(drop, x)
+                counts.values += drop.world * split[1] * x.numel()
+            return counts.saved(drop, x, split)
 
         self.cls.__call__ = call
         return self
@@ -3482,6 +3498,300 @@ def dp_phase(card):
     print(f"[time] the data-parallel phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, numbers
+
+
+# ---------------------------------------------------------------- the grid
+GRID_WORLD = 2  # two gloo ranks on this one card, as the data-parallel phase
+GRID_TIMEOUT_S = 600
+GRID_IMAGES = 2  # per stream: 2 + 2 images, as world 1 takes them
+# limits of the grid's steps against world 1's on the same batch: float32
+# (the flagship at M = 2), the data-parallel phase's limits over 2 steps;
+# bf16 (ViTDet-B at M = 2, ViTDet-L under FSDP), the metrics of the first
+# step, where a split product or a convolution over 1 image instead of 2
+# rounds its bf16 outputs otherwise (ViTDet-B at M = 2: 2.0e-2, NVIDIA
+# H100 80GB HBM3, 700 W). The second step is printed, not held: from it on
+# the teacher's bf16 scores move with those last bits across
+# TEACHER.THRESHOLD (6.5 pseudo-labels against world 1's 5 in that run),
+# and a wrong split (a bias added twice, another rank's heads) moves the
+# first step's losses by far more
+GRID_BF16_LOSS_RTOL = 5e-2
+# a rank's bytes of the FSDP'd student, moments and teacher at most this
+# share of world 1's (half, plus the small leaves that stay replicated)
+GRID_FSDP_SHARE = 0.55
+
+
+def grid_spawn(fn, args, world=GRID_WORLD):
+    """``fn(rank, world, *args)`` in ``world`` gloo processes sharing this
+    card (``dp_spawn``'s launch), or fail the run."""
+    import tempfile
+
+    from aldi_tpu_torch.parallel import mesh
+
+    with tempfile.TemporaryDirectory(prefix="aldi_smoke_grid_") as tmp:
+        try:
+            return mesh.spawn(fn, world, f"file://{tmp}/store", *args,
+                              device_type="cuda", backend="gloo",
+                              timeout=GRID_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"grid: {fn.__name__}: {e}")
+
+
+def state_bytes(state) -> dict:
+    """GiB this rank's training state holds between steps: the student's
+    parameters and gradients, the optimizer's moments, the teacher's
+    parameters."""
+    def gib(ts):
+        return sum(t.numel() * t.element_size() for t in ts) / 2**30
+
+    params = list(state.student.parameters())
+    return {"params": gib(params),
+            "grads": gib(p.grad for p in params if p.grad is not None),
+            "moments": gib(t for s in state.optimizer.state.values()
+                           for t in s.values()
+                           if getattr(t, "ndim", 0) > 0),
+            "teacher": gib(state.teacher.parameters())}
+
+
+def grid_steps(rank, world, model, config, overrides, n_steps, seed,
+               keep_state=False):
+    """``n_steps`` DAOD steps of ``config`` at full width on the grid of
+    ``model`` model ranks (``world`` 1: no group), each rank on its data
+    index's share of global batches of GRID_IMAGES + GRID_IMAGES images and
+    their draws, made on the card from ``seed`` alike on every rank;
+    ``seeded_weights``; TF32 off. Returns per step the rank's metrics and
+    ms, its peak GiB, the kernels' launches in the steps, the head groups
+    G of the global blocks' attention launches, ``state_bytes`` after the
+    last step and (``keep_state``) world 1's student and teacher gathered
+    from the shards, on the CPU."""
+    import torch
+
+    from aldi_tpu_torch.engine.train_step import (create_train_state,
+                                                  draw_step, make_train_step)
+    from aldi_tpu_torch.models import build_detector, vit
+    from aldi_tpu_torch.ops.flash_attn_kernel import (flash_attn_bwd,
+                                                      flash_attn_fwd)
+    from aldi_tpu_torch.ops.match_kernel import low_quality_mask, match_iou
+    from aldi_tpu_torch.ops.roi_align_kernel import (roi_align_bwd,
+                                                     roi_align_fwd)
+    from aldi_tpu_torch.parallel import mesh
+
+    if world > 1:
+        mesh.make_grid(model)
+    cfg = config_of(config, overrides)
+    n = GRID_IMAGES
+    cfg.SOLVER.IMS_PER_BATCH = 2 * n
+    det = build_detector(cfg)
+    state = create_train_state(cfg, det, seeded_weights(det, seed=0))
+    step = make_train_step(cfg, det)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [synthetic_train_batch(gen, det.canvas, cfg.TPU.MAX_GT,
+                                     det.num_classes, n)
+               for _ in range(n_steps)]
+    draws = [draw_step(gen, det, n, n) for _ in range(n_steps)]
+    kernels = (match_iou, low_quality_mask, roi_align_fwd, roi_align_bwd,
+               flash_attn_fwd, flash_attn_bwd)
+    groups = set()
+    attention = vit.flash_attention_relpos
+
+    def recorded(q, *args, **kwargs):
+        groups.add(q.shape[0])
+        return attention(q, *args, **kwargs)
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vit.flash_attention_relpos = recorded
+    metrics, times = [], []
+    try:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b, d in zip(batches, draws):
+            t0 = time.perf_counter()
+            state, m = step(state, mesh.shard_batch(b), mesh.shard_draws(d))
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        vit.flash_attention_relpos = attention
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    out = {"metrics": metrics, "ms": times, "launches": launches,
+           "groups": sorted(groups), "bytes": state_bytes(state),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "split": {axis: sum(getattr(mesh.shard_of(p), "axis", None)
+                               == axis
+                               for p in state.student.parameters())
+                     for axis in ("model", "data")}}
+    if keep_state:
+        for part in ("student", "teacher"):
+            out[part] = {k: v.cpu() for k, v in mesh.full_state_dict(
+                getattr(state, part)).items()}
+    return out
+
+
+def grid_all(rank, world):
+    """The three grid runs of ``grid_phase`` in one process start each: the
+    flagship's 2 float32 steps and ViTDet-B's bf16 step at M = 2, then
+    ViTDet-L's bf16 step under FSDP at D = 2 (a grid of its own)."""
+    r50 = grid_steps(rank, world, 2, FLAGSHIP, DP_FLOAT32, 2, 41,
+                     keep_state=True)
+    vitb = grid_steps(rank, world, 2, VIT_ALDI, None, 2, 42)
+    vitl = grid_steps(rank, world, 1, VITL_ALDI, {"TPU.FSDP": True}, 2, 43)
+    return r50, vitb, vitl
+
+
+def grid_losses(label, ranks, want, model, steps=None):
+    """The data ranks' summed metrics (one rank of each model group)
+    against world 1's, per step: the worst relative error of the first
+    ``steps`` (all by default); each step's printed."""
+    outs = ranks[::model]
+    worst = 0.0
+    for i, w in enumerate(want["metrics"]):
+        got = {k: sum(o["metrics"][i][k] for o in outs) for k in w}
+        errs = {k: abs(got[k] - w[k]) / max(abs(w[k]), 1e-3) for k in w}
+        k = max(errs, key=errs.get)
+        print(f"[grid] {label}: the worst summed loss of step {i + 1}, {k}: "
+              f"{got[k]:.7g} against world 1's {w[k]:.7g} (relative "
+              f"{errs[k]:.3g})", flush=True)
+        if steps is None or i < steps:
+            worst = max(worst, errs[k])
+    return worst
+
+
+def grid_phase(card):
+    """Tensor parallelism and FSDP (``aldi_tpu_torch/parallel/``) on two
+    gloo ranks sharing this card, against world 1 on the same batch: (i)
+    the flagship's DAOD step at M = 2, float32, 2 steps, the data-parallel
+    phase's limits;
+    (ii) ViTDet-B at M = 2, bf16: each rank's global blocks launch K3a/K3b
+    on 2 images x 6 heads (G = 12), held against their plain versions at
+    that G; (iii) ViTDet-L with TPU.FSDP at D = 2, bf16: each rank's bytes
+    of student, moments and teacher between steps about half of world 1's.
+    Returns the ranks' kernel launches per run and K3a/K3b's numbers at
+    G = 12."""
+    import torch
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ranks = grid_spawn(grid_all, ())
+    grid_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    r50 = [r[0] for r in ranks]
+    vitb = [r[1] for r in ranks]
+    vitl = [r[2] for r in ranks]
+    r50_want = grid_steps(0, 1, 1, FLAGSHIP, DP_FLOAT32, 2, 41,
+                          keep_state=True)
+    torch.cuda.empty_cache()
+    vitb_want = grid_steps(0, 1, 1, VIT_ALDI, None, 2, 42)
+    torch.cuda.empty_cache()
+    vitl_want = grid_steps(0, 1, 1, VITL_ALDI, {"TPU.FSDP": True}, 2, 43)
+    torch.cuda.empty_cache()
+
+    # (i) the flagship at M = 2, float32
+    per_step = {"match_iou": 3, "low_quality_mask": 3, "roi_align_fwd": 4,
+                "roi_align_bwd": 2}
+    loss_err = grid_losses("R50-FPN, M = 2", r50, r50_want, 2)
+    s, w = r50[0]["student"], r50_want["student"]
+    param_err = max(float((s[k] - w[k]).abs().max()) for k in w
+                    if w[k].is_floating_point())
+    t = r50[0]["teacher"]
+    teacher_err = max(float((t[k] - r50_want["teacher"][k]).abs().max())
+                      for k in w if w[k].is_floating_point())
+    for part in ("student", "teacher"):
+        if not all(torch.equal(r50[0][part][k], r50[1][part][k])
+                   for k in w):
+            fail(f"grid: the model ranks gather different {part}s")
+    for r, out in enumerate(r50):
+        for name, count in per_step.items():
+            if out["launches"][name] != 2 * count:
+                fail(f"grid: R50-FPN rank {r} launched {name} "
+                     f"{out['launches'][name]} times in 2 steps, {count} "
+                     "per step expected")
+    print(f"[grid] R50-FPN DAOD step at M = 2 (two gloo ranks on one card, "
+          f"each the whole {GRID_IMAGES} + {GRID_IMAGES} images; the box "
+          f"head's fc1/fc2 split, {r50[0]['split']['model']} parameters) "
+          f"against world 1, float32, 2 steps: summed losses worst relative "
+          f"error {loss_err:.3g} (tol {DP_LOSS_RTOL}), student max abs err "
+          f"{param_err:.3g}, teacher {teacher_err:.3g} (tol "
+          f"{DP_PARAM_ATOL}); launches of each rank "
+          f"{[r['launches'] for r in r50]}; step ms rank 0 "
+          f"{fmt(r50[0]['ms'])}, world 1 {fmt(r50_want['ms'])}; peak GiB per "
+          f"rank {fmt([r['peak_gib'] for r in r50])}, world 1 "
+          f"{r50_want['peak_gib']:.2f}; card {card}", flush=True)
+    if loss_err > DP_LOSS_RTOL or max(param_err, teacher_err) > DP_PARAM_ATOL:
+        fail("grid: R50-FPN at M = 2 differs from world 1")
+
+    # (ii) ViTDet-B at M = 2, bf16: K3a/K3b at G = 12
+    loss_err = grid_losses("ViTDet-B, M = 2", vitb, vitb_want, 2, steps=1)
+    want_g = GRID_IMAGES * VIT_HEADS // 2
+    for r, out in enumerate(vitb):
+        if out["groups"] != [want_g]:
+            fail(f"grid: ViTDet-B rank {r} launched attention at G = "
+                 f"{out['groups']}, not {want_g}")
+        if (out["launches"]["flash_attn_fwd"] != 2 * 20
+                or out["launches"]["flash_attn_bwd"] != 2 * 8):
+            fail(f"grid: ViTDet-B rank {r} launched K3a/K3b "
+                 f"{out['launches']}, 20/8 per step expected")
+    attn = check_attn(f"ViTDet-B at M = 2 ({GRID_IMAGES} images x "
+                      f"{VIT_HEADS // 2} heads)", torch.bfloat16, *VIT_GRID,
+                      want_g, seed=29, kernel_iters=5, plain_iters=1,
+                      library=True)
+    print(f"[grid] ViTDet-B DAOD step at M = 2, bf16, {GRID_IMAGES} + "
+          f"{GRID_IMAGES}: step 1's summed metrics worst relative error "
+          f"{loss_err:.3g} "
+          f"(tol {GRID_BF16_LOSS_RTOL}); {vitb[0]['split']['model']} "
+          f"parameters split per rank; K3a/K3b at G = {vitb[0]['groups']} "
+          f"(world 1: {vitb_want['groups']}), launches of each rank "
+          f"{[r['launches'] for r in vitb]}; step ms per rank "
+          f"{[fmt(r['ms']) for r in vitb]}, world 1 {fmt(vitb_want['ms'])}; "
+          f"peak GiB per rank {fmt([r['peak_gib'] for r in vitb])}, world 1 "
+          f"{vitb_want['peak_gib']:.2f}; card {card}", flush=True)
+    if loss_err > GRID_BF16_LOSS_RTOL:
+        fail("grid: ViTDet-B at M = 2 differs from world 1")
+
+    # (iii) ViTDet-L under FSDP at D = 2, bf16
+    loss_err = grid_losses("ViTDet-L, FSDP D = 2", vitl, vitl_want, 1,
+                           steps=1)
+    shares = {k: [r["bytes"][k] / vitl_want["bytes"][k] for r in vitl]
+              for k in ("params", "grads", "moments", "teacher")}
+    for r, out in enumerate(vitl):
+        if out["groups"] != [GRID_IMAGES // 2 * VITL_HEADS]:
+            fail(f"grid: ViTDet-L rank {r} launched attention at G = "
+                 f"{out['groups']}, not {GRID_IMAGES // 2 * VITL_HEADS}")
+    print(f"[grid] ViTDet-L DAOD step with TPU.FSDP at D = 2, bf16, "
+          f"{GRID_IMAGES // 2} + {GRID_IMAGES // 2} per rank of a global "
+          f"{GRID_IMAGES} + {GRID_IMAGES}: step 1's summed metrics worst "
+          f"relative error {loss_err:.3g} (tol {GRID_BF16_LOSS_RTOL}); "
+          f"{vitl[0]['split']['data']} parameters sharded; K3a/K3b at G = "
+          f"{vitl[0]['groups']} (world 1: {vitl_want['groups']}); GiB between "
+          f"steps "
+          f"per rank " + "; ".join(
+              f"{k} {fmt([r['bytes'][k] for r in vitl], 3)} (world 1 "
+              f"{vitl_want['bytes'][k]:.3f}, share "
+              f"{fmt(shares[k], 3)})" for k in shares)
+          + f"; peak GiB per rank {fmt([r['peak_gib'] for r in vitl])}, "
+          f"world 1 {vitl_want['peak_gib']:.2f}; step ms per rank "
+          f"{[fmt(r['ms']) for r in vitl]}, world 1 {fmt(vitl_want['ms'])}; "
+          f"card {card}", flush=True)
+    if loss_err > GRID_BF16_LOSS_RTOL:
+        fail("grid: ViTDet-L under FSDP differs from world 1")
+    for k in ("params", "moments", "teacher"):
+        if max(shares[k]) > GRID_FSDP_SHARE:
+            fail(f"grid: a rank holds {max(shares[k]):.3f} of world 1's "
+                 f"{k} under FSDP at D = 2")
+    print(f"[time] the grid phase took {time.perf_counter() - t_phase:.1f} s "
+          f"(the ranks {grid_s:.1f} s with their start)", flush=True)
+    launches = {f"{label}, rank {r}": out["launches"]
+                for label, runs in (("R50-FPN M=2 training (2 steps)", r50),
+                                    ("ViTDet-B M=2 training (2 steps)", vitb),
+                                    ("ViTDet-L FSDP training (2 steps)",
+                                     vitl))
+                for r, out in enumerate(runs)}
+    return launches, attn
 
 
 def yolo_config(overrides=None):
@@ -4758,6 +5068,11 @@ def main():
     # trainer at world 2
     dp_launches, _ = dp_phase(card)
 
+    # -- 7b. the data x model grid: tensor parallelism at M = 2 (the
+    # flagship, ViTDet-B with K3a/K3b at G = 12) and FSDP at D = 2
+    # (ViTDet-L), two gloo ranks on this card against world 1
+    grid_launches, grid_attn = grid_phase(card)
+
     # -- 8. YOLOv5-m: serving, the DAOD step (and with image-level
     # alignment, and once at the published chunk of 12 + 12), the artifact
     # and the tiny card-vs-CPU step. None of the six kernels is on its
@@ -4821,6 +5136,7 @@ def main():
                "Fast R-CNN trainer": extra["fast_rcnn"][0],
                "Fast R-CNN trainer eval": extra["fast_rcnn"][1],
                "ViTDet-L training": vitl_launches,
+               **grid_launches,
         **{f"{m} serving": v for m, v in serving_launches.items()},
         **{f"{m} artifact": v for m, v in artifact_launches.items()},
         **yolo_launches, **detr_launches}
@@ -4863,6 +5179,8 @@ def main():
             entry["fast_rcnn_request"] = fast_rcnn_roi
         if k.name in ("flash_attn_fwd", "flash_attn_bwd"):
             entry["vitdet_l"] = {g: n[k.name] for g, n in vitl_attn.items()}
+            entry["vitdet_b_m2"] = {"G": GRID_IMAGES * VIT_HEADS // 2,
+                                    **grid_attn[k.name]}
         entries.append(entry)
     # K4: launches from the DETR training steps; the numbers of the warm-up
     # step's first launch (the labeled_strong stream's 24 problems)

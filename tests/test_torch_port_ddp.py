@@ -295,6 +295,13 @@ def test_without_a_group_the_reductions_are_the_identity():
 @pytest.mark.parametrize("key,value", [("TPU.MESH_MODEL", 2),
                                        ("TPU.FSDP", True)])
 def test_model_sharding_still_raises(key, value):
+    """The grid's check (``mesh.check_grid``) on a group the settings do
+    not fit: without a group (world 1) TPU.MESH_MODEL 2 raises the JAX
+    package's ``make_mesh`` error, and TPU.FSDP with a TPU.MESH_DATA of 2
+    raises, while TPU.FSDP alone fits world 1."""
     cfg = daod_cfg(port_get_cfg, **{key: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.check_data_parallel(cfg)
+    if key == "TPU.FSDP":
+        mesh.check_grid(cfg)
+        cfg = daod_cfg(port_get_cfg, **{key: value, "TPU.MESH_DATA": 2})
+    with pytest.raises(ValueError, match="devices not divisible|MESH_DATA"):
+        mesh.check_grid(cfg)

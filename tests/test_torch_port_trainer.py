@@ -281,8 +281,8 @@ def test_nan_loss_raises(names, tmp_path):
 
 def test_trainer_raises_without_a_card(names, tmp_path):
     """MODEL.DEVICE tpu (the YAMLs' default) or cuda means the card: without
-    one the trainer raises instead of running on the CPU; the JAX
-    package's multi-device settings raise too."""
+    one the trainer raises instead of running on the CPU; a model axis
+    wider than the group raises the JAX package's mesh error."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     for device in ("tpu", "cuda"):
@@ -290,6 +290,7 @@ def test_trainer_raises_without_a_card(names, tmp_path):
                           **{"MODEL.DEVICE": device})
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ALDITrainer(cfg)
-    cfg = trainer_cfg(port_get_cfg, names, tmp_path, **{"TPU.FSDP": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = trainer_cfg(port_get_cfg, names, tmp_path,
+                      **{"TPU.MESH_MODEL": 2})
+    with pytest.raises(ValueError, match="not divisible by TPU.MESH_MODEL"):
         ALDITrainer(cfg)
