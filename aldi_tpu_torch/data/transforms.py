@@ -1,6 +1,6 @@
 """Host-side geometric transforms (the reference's "weak" augmentation).
 
-Port of ``aldi_tpu/data/transforms.py:25-210`` (its PIL branch):
+Port of ``aldi_tpu/data/transforms.py:25-210``:
 ``ResizeShortestEdge`` with "choice" or "range" sampling, ``RandomFlip``
 and the optional ``RandomCrop`` before the resize (reference
 ``aldi/aug.py:21-23``). Pixel-space strong augmentations run on the device
@@ -10,9 +10,10 @@ boxes and both views share one transform.
 Output contract (the ragged -> static boundary): every record is resized,
 flipped, then pasted top-left onto the fixed canvas; boxes are transformed
 alongside; the actual (h, w) is reported so the model can clip and mask the
-padding. Images are decoded and resized with PIL, exactly as the JAX
-package's PIL branch does; the JAX package's native decoder
-(``aldi_native``) is not used. A record's precomputed proposals
+padding. As in the JAX package, a choice without a crop is decoded,
+resized, flipped and pasted by the native core (``data/native.py``) when
+it builds, and every other choice by PIL; each branch gives the JAX
+package's bits on the same branch. A record's precomputed proposals
 (``MODEL.LOAD_PROPOSALS``, ``data/proposals.py``) take the same drawn
 choice as its image and gt boxes.
 """
@@ -22,6 +23,7 @@ from typing import List, Tuple
 import numpy as np
 from PIL import Image
 
+from . import native as _native
 from .proposals import transform_proposals
 
 
@@ -126,16 +128,9 @@ def draw_transform(record: dict, rng: np.random.Generator,
     return short, do_flip, box
 
 
-def apply_transform(record: dict, choice, max_size: int,
-                    canvas: Tuple[int, int], max_gt: int = 100,
-                    bgr: bool = True, proposal_topk: int = 0):
-    """``record`` decoded and transformed by ``choice``
-    (``draw_transform``'s): the output of ``transform_record``."""
-    short, do_flip, box = choice
-    anns_src = [
-        a for a in record.get("annotations", [])
-        if not a["iscrowd"] and not a.get("ignore", 0)
-    ]
+def _pil_transform(record, anns_src, short, do_flip, box, max_size, canvas,
+                   max_gt, bgr):
+    """The PIL branch: crop, resize, flip, swap, paste."""
     img = Image.open(record["file_name"])
     img = img.convert("RGB")
     if box is not None:
@@ -160,6 +155,32 @@ def apply_transform(record: dict, choice, max_size: int,
         np.clip(boxes[:, [1, 3]], 0, h, out=boxes[:, [1, 3]])
     out_img = np.zeros((ch, cw, 3), np.uint8)
     out_img[:h, :w] = arr
+    return out_img, h, w, scale, boxes, classes, valid
+
+
+def apply_transform(record: dict, choice, max_size: int,
+                    canvas: Tuple[int, int], max_gt: int = 100,
+                    bgr: bool = True, proposal_topk: int = 0):
+    """``record`` decoded and transformed by ``choice``
+    (``draw_transform``'s): the output of ``transform_record``."""
+    short, do_flip, box = choice
+    anns_src = [
+        a for a in record.get("annotations", [])
+        if not a["iscrowd"] and not a.get("ignore", 0)
+    ]
+    ch, cw = canvas
+    if _native is not None and box is None and _native.core() is not None:
+        # the native core: decode, resize, flip, channel swap and paste
+        # without the interpreter lock; its size is clamped to the canvas
+        # before the resize
+        out_img, h, w, scale = _native.load_resize_pad(
+            record["file_name"], short, int(max_size), ch, cw, bgr, do_flip)
+        boxes, classes, valid = _boxes_to_arrays(
+            anns_src, scale, max_gt, do_flip, w, h)
+    else:
+        out_img, h, w, scale, boxes, classes, valid = _pil_transform(
+            record, anns_src, short, do_flip, box, max_size, canvas, max_gt,
+            bgr)
     out = {
         "image": out_img,
         "sizes": np.asarray([h, w], np.int32),

@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.catalog import DatasetCatalog, MetadataCatalog
+from ..data import native
 from ..data.loader import TestLoader
 from ..parallel import mesh
 from .coco_eval import evaluate_detections
@@ -116,6 +117,9 @@ def inference_on_dataset(
     loader = TestLoader(dataset_name, cfg, detector.canvas, batch_size,
                         shard=(mesh.data_rank(), mesh.data_world()))
     md = MetadataCatalog.get(dataset_name)
+    if logger:
+        logger.info(f"[{dataset_name}] host decoder: %s (%s)"
+                    % native.decoder())
 
     predictions = defaultdict(list)
     n_images = 0

@@ -51,6 +51,7 @@ import torch
 
 from .. import resolve_device
 from ..data import datasets  # noqa: F401  (dataset registrations)
+from ..data import native
 from ..data.loader import DevicePrefetcher, WeakStrongLoader
 from ..models import build_detector
 from ..parallel import mesh
@@ -197,6 +198,7 @@ class ALDITrainer:
         # prefetcher pulls ahead of the consumed position
         self.loader.seek(start)
         self.logger.info(f"Starting training from iteration {start}")
+        self.logger.info("Host decoder: %s (%s)" % native.decoder())
         self.storage.iter = start
 
         depth = cfg.TPU.DEVICE_PREFETCH

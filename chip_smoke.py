@@ -10,6 +10,18 @@ failure exits non-zero:
    serving and training paths from ``aldi_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together), with the build time and the
    compiler's register and spill report.
+1b. Decoder phase: the host data path's native decoder
+   (``aldi_tpu_torch/data/native.py``, ``csrc/native_decode.cpp``) built
+   with the system C++ compiler (its name, version and the build seconds;
+   a core that does not build fails the run), held bitwise against its
+   plain numpy version on noise-textured 2048x1024 PNGs and JPEGs
+   (quality 95) at short edges 800, 896 and 1024, flipped and not, BGR;
+   one image per call on one thread through ``apply_transform`` on the
+   native and the PIL branch (and PIL's decode alone), in ms, and on a
+   pool of 1 and 8 threads, in images/s;
+   ``WeakStrongLoader`` at the published 24 + 24 with TPU.DATA_THREADS 8
+   and 1 and ``TestLoader``, on each branch, in images/s; with the host
+   CPU's model and core count.
 2. Kernel phase, each kernel against its plain PyTorch version at the
    main paths' shapes, with its time, the plain version's time and the
    least time the card could take: the ROIAlign forward (8 images, 1000
@@ -2083,6 +2095,288 @@ def time_step_launches(model, launches, seed=40, plain_iters=1,
     return out
 
 
+DECODER_SHORTS = (800, 896, 1024)  # MIN_SIZE_TRAIN's ends and a middle
+DECODER_IMAGES = 16  # per format
+
+
+def host_cpu():
+    """The host CPU as /proc/cpuinfo names it, and the core count."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return (f"{fields.get('model name', 'unknown')} (vendor "
+            f"{fields.get('vendor_id', '?')}, family "
+            f"{fields.get('cpu family', '?')}, model "
+            f"{fields.get('model', '?')}); os.cpu_count() {os.cpu_count()}")
+
+
+def texture_split(root, name, n, seed, fmt, size=(1024, 2048)):
+    """``n`` noise-textured images of ``size`` (h, w), which a PNG or JPEG
+    coder treats as it does a photograph (a smooth random field, bicubic
+    from 1/32 of the size, plus per-pixel noise of std 12; not the
+    trainer phase's flat rectangles): PNGs at PIL's default compression or
+    JPEGs at quality 95, written by 8 threads, with a COCO json of 3 boxes
+    each. Returns (json path, image dir, image paths)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = size
+    img_dir = os.path.join(root, name, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    ext = {"png": "png", "jpeg": "jpg"}[fmt]
+
+    def one(i):
+        rng = np.random.default_rng((seed, i))
+        field = Image.fromarray(rng.integers(
+            0, 256, (h // 32, w // 32, 3), np.uint8)).resize(
+                (w, h), Image.BICUBIC)
+        img = np.asarray(field, np.int16) + rng.normal(
+            0, 12, (h, w, 3)).astype(np.int16)
+        path = os.path.join(img_dir, f"{i:04d}.{ext}")
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            path, **({"quality": 95} if fmt == "jpeg" else {}))
+        return path
+
+    with ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(one, range(n)))
+    coco = {"images": [{"id": i + 1, "file_name": os.path.basename(p),
+                        "height": h, "width": w}
+                       for i, p in enumerate(paths)],
+            "annotations": [{"id": 3 * i + k + 1, "image_id": i + 1,
+                             "category_id": k + 1,
+                             "bbox": [100 + 300 * k, 200, 200, 150],
+                             "area": 30000, "iscrowd": 0}
+                            for i in range(n) for k in range(3)],
+            "categories": [{"id": c + 1, "name": f"class{c}"}
+                           for c in range(8)]}
+    path = os.path.join(root, name, "annotations.json")
+    with open(path, "w") as f:
+        json.dump(coco, f)
+    return path, img_dir, paths
+
+
+class pil_branch:
+    """Within the block, ``apply_transform`` takes its PIL branch (the
+    port's ``data/transforms.py`` ``_native`` set to None, as the tests
+    choose a branch)."""
+
+    def __enter__(self):
+        import aldi_tpu_torch.data.transforms as tr
+        self.saved, tr._native = tr._native, None
+
+    def __exit__(self, *exc):
+        import aldi_tpu_torch.data.transforms as tr
+        tr._native = self.saved
+
+
+def loader_images_per_s(cfg, threads, batches):
+    """``WeakStrongLoader`` at SOLVER.IMS_PER_BATCH (24 + 24) with
+    ``threads`` TPU.DATA_THREADS per stream: images/s over ``batches``
+    batches from its construction (the prefetch ramp included), its pools
+    drained afterwards, untimed."""
+    from aldi_tpu_torch.data.loader import WeakStrongLoader
+
+    t0 = time.perf_counter()
+    loader = WeakStrongLoader(cfg, tuple(cfg.TPU.CANVAS), seed=0,
+                              num_threads=threads)
+    n = 0
+    for _ in range(batches):
+        b = next(loader)
+        n += b["labeled"]["image"].shape[0] + b["unlabeled"]["image"].shape[0]
+    dt = time.perf_counter() - t0
+    for stream in (loader.labeled, loader.unlabeled):
+        stream._pool.shutdown(wait=True, cancel_futures=True)
+    return n / dt
+
+
+def decoder_phase(card):
+    """The native decoder on the card's host (``aldi_tpu_torch/data/
+    native.py``, ``csrc/native_decode.cpp``): its build (compiler, version,
+    seconds; a core that does not build fails the run), the core held
+    bitwise against ``load_resize_pad_plain`` on noise-textured 2048x1024
+    PNGs and JPEGs, one image per call on one thread through
+    ``apply_transform`` on each branch, ``WeakStrongLoader`` at 24 + 24
+    with 8 and 1 threads and ``TestLoader`` on each branch. Returns the
+    numbers."""
+    import contextlib
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.data import native
+    from aldi_tpu_torch.data.catalog import (DatasetCatalog,
+                                             register_coco_instances)
+    from aldi_tpu_torch.data.loader import TestLoader
+    from aldi_tpu_torch.data.transforms import apply_transform
+    from aldi_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    compiler = _build.cxx()
+    version = subprocess.run([compiler, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    branch, why = native.decoder()
+    build_s = time.perf_counter() - t0
+    print(f"[decoder] {branch}: {why}; compiler {compiler} ({version}); "
+          f"built and loaded in {build_s:.2f} s; host CPU {host_cpu()}; "
+          f"card {card}", flush=True)
+    if branch != "native":
+        fail(f"the native decoder did not build on this machine: {why}")
+    core = native.core()
+    numbers = {"decoder": branch, "how": why, "codecs": core.codecs,
+               "build_s": build_s, "host_cpu": host_cpu(), "card": card}
+    tmp = tempfile.mkdtemp(prefix="aldi_smoke_decoder_")
+    try:
+        t0 = time.perf_counter()
+        splits = {fmt: texture_split(tmp, f"decoder_{fmt}", DECODER_IMAGES,
+                                     seed, fmt)
+                  for fmt, seed in (("png", 31), ("jpeg", 32))}
+        sizes = {fmt: sum(os.path.getsize(p) for p in s[2]) / len(s[2]) / 2**20
+                 for fmt, s in splits.items()}
+        print(f"[decoder] {DECODER_IMAGES} PNGs and {DECODER_IMAGES} JPEGs "
+              f"(quality 95) of 2048x1024 noise texture written in "
+              f"{time.perf_counter() - t0:.2f} s; mean MiB per file "
+              f"{json.dumps(sizes)}", flush=True)
+
+        # the core against its plain version, bitwise
+        checks = 0
+        for k, (short, flip) in enumerate(
+                (s, f) for s in DECODER_SHORTS for f in (False, True)):
+            for fmt, (_, _, paths) in splits.items():
+                args = (short, 2048, 1024, 2048, True, flip)
+                path = paths[k % len(paths)]
+                got = core.load_resize_pad(path, *args)
+                want = native.load_resize_pad_plain(path, *args)
+                if got[1:] != want[1:] or not np.array_equal(got[0],
+                                                              want[0]):
+                    err = int(np.abs(got[0].astype(np.int32)
+                                     - want[0].astype(np.int32)).max())
+                    fail(f"the native core differs from its plain version "
+                         f"on a {fmt} at short edge {short}, flip {flip}: "
+                         f"{got[1:]} against {want[1:]}, max abs err {err}")
+                checks += 1
+        print(f"[decoder] the core bitwise equal to load_resize_pad_plain "
+              f"in {checks} calls (short edges {DECODER_SHORTS}, flipped "
+              f"and not, BGR, PNG and JPEG; max abs err 0)", flush=True)
+
+        # one image per call, one thread: PIL's decode alone, then each
+        # branch of apply_transform at short edge 896
+        per_call = {}
+        for fmt, (_, _, paths) in splits.items():
+            recs = [{"file_name": p, "image_id": i, "annotations": []}
+                    for i, p in enumerate(paths)]
+            row = {}
+            for label in ("decode", "native", "pil"):
+                times = []
+                for r in recs:
+                    t0 = time.perf_counter()
+                    if label == "decode":
+                        native.decode_rgb(r["file_name"])
+                    elif label == "native":
+                        apply_transform(r, (896, False, None), 2048,
+                                        (1024, 2048))
+                    else:
+                        with pil_branch():
+                            apply_transform(r, (896, False, None), 2048,
+                                            (1024, 2048))
+                    times.append((time.perf_counter() - t0) * 1e3)
+                row[f"{label}_ms"] = median(times)
+            per_call[fmt] = row
+            ratio = row["pil_ms"] / row["native_ms"]
+            print(f"[decoder] one {fmt} per call on one thread, median of "
+                  f"{len(recs)} ms: PIL's decode alone "
+                  f"{row['decode_ms']:.2f}; apply_transform at short edge "
+                  f"896 native {row['native_ms']:.2f}, PIL branch "
+                  f"{row['pil_ms']:.2f} (x{ratio:.2f}); card {card}",
+                  flush=True)
+        numbers["per_call"] = per_call
+
+        # images/s of apply_transform on a pool of 1 and 8 threads (no
+        # loader: each image its own task), to tell the decode's own
+        # scaling from the loader's batches in flight
+        recs = [{"file_name": p, "image_id": i, "annotations": []}
+                for i, p in enumerate(splits["png"][2] * 2)]
+        pool_rates = {}
+        for threads in (1, 8):
+            for label in ("native", "pil"):
+                with ThreadPoolExecutor(threads) as pool:
+                    t0 = time.perf_counter()
+                    with (pil_branch() if label == "pil"
+                          else contextlib.nullcontext()):
+                        list(pool.map(lambda r: apply_transform(
+                            r, (896, False, None), 2048, (1024, 2048)),
+                            recs))
+                    rate = len(recs) / (time.perf_counter() - t0)
+                pool_rates[f"{label}, {threads} threads"] = rate
+        numbers["pool_images_per_s"] = pool_rates
+        print(f"[decoder] apply_transform at short edge 896 on a thread "
+              f"pool, {len(recs)} PNGs, images/s: {json.dumps(pool_rates)};"
+              f" card {card}", flush=True)
+
+        # the training loader at the published 24 + 24 on the PNG split
+        # (Cityscapes' format), and the test loader
+        names = {}
+        for fmt, (jpath, img_dir, _) in splits.items():
+            names[fmt] = f"smoke_decoder_{fmt}"
+            if names[fmt] not in DatasetCatalog:
+                register_coco_instances(names[fmt], {}, jpath, img_dir)
+        cfg = get_cfg()
+        cfg.merge_from_file(FLAGSHIP)
+        cfg.DATASETS.TRAIN = (names["png"],)
+        cfg.DATASETS.UNLABELED = (names["png"],)
+        cfg.DATASETS.TEST = (names["png"],)
+        rates = {}
+        for threads, batches in ((8, 3), (1, 2)):
+            for label in ("native", "pil"):
+                if label == "pil":
+                    with pil_branch():
+                        rate = loader_images_per_s(cfg, threads, batches)
+                else:
+                    rate = loader_images_per_s(cfg, threads, batches)
+                rates[f"{label}, {threads} threads"] = rate
+        numbers["weak_strong_images_per_s"] = rates
+        print(f"[decoder] WeakStrongLoader at 24 + 24 PNGs, TPU.PREFETCH "
+              f"{cfg.TPU.PREFETCH}, images/s (from construction, 3 batches "
+              f"at 8 threads, 2 at 1): {json.dumps(rates)}; the trainer "
+              f"takes 48 images per step (~0.8 s: 60 images/s); host CPU "
+              f"{host_cpu()}; card {card}", flush=True)
+        test_rates = {}
+        for label in ("native", "pil"):
+            t0 = time.perf_counter()
+            if label == "pil":
+                with pil_branch():
+                    n = sum(len(m) for _, m in TestLoader(
+                        names["png"], cfg, (1024, 2048), batch_size=8))
+            else:
+                n = sum(len(m) for _, m in TestLoader(
+                    names["png"], cfg, (1024, 2048), batch_size=8))
+            test_rates[label] = n / (time.perf_counter() - t0)
+        numbers["test_images_per_s"] = test_rates
+        print(f"[decoder] TestLoader (eval, one thread, MIN_SIZE_TEST "
+              f"{cfg.INPUT.MIN_SIZE_TEST}: scale 1) on {DECODER_IMAGES} "
+              f"PNGs, images/s: "
+              f"{json.dumps(test_rates)}; card {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[time] the decoder phase took {numbers['phase_s']:.1f} s",
+          flush=True)
+    print("[decoder] " + json.dumps(numbers), flush=True)
+    return numbers
+
+
 def write_synthetic_coco(root, name, n, seed, num_classes=8,
                          size=(1024, 2048), box_px=(16, 512)):
     """``n`` PNG images of ``size`` (h, w) with 5-30 boxes of ``box_px``
@@ -2380,6 +2674,7 @@ def trainer_phase(card, kernels, then=None):
 
     import aldi_tpu_torch.engine.trainer as tm
     from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.data import native
     from aldi_tpu_torch.data.catalog import (DatasetCatalog,
                                              register_coco_instances)
     from aldi_tpu_torch.engine.checkpoint_convert import \
@@ -2497,6 +2792,7 @@ def trainer_phase(card, kernels, then=None):
                      f"steps copy pyramid levels before K2: {probe.copies}")
             per_it = [m["images_per_sec"] for m in lines]
             data_time = [m["data_time"] for m in lines]
+            decoder = "%s (%s)" % native.decoder()
             print(f"[trainer] R50-FPN through train_net main, "
                   f"SOLVER.IMS_PER_BATCH 48 (24 labeled + 24 unlabeled "
                   f"images of 1024x2048, bfloat16), TPU.GRAD_ACCUM {accum}, "
@@ -2504,8 +2800,8 @@ def trainer_phase(card, kernels, then=None):
                   f"{wall:.2f} s (start, eval and checkpoints included); "
                   f"images/s per iteration {fmt(per_it)} (median of "
                   f"iterations 2-4 {median(per_it[1:]):.2f}); data_time s "
-                  f"{fmt(data_time, 4)} (median {median(data_time):.4f}); "
-                  f"dispatch_time s "
+                  f"{fmt(data_time, 4)} (median {median(data_time):.4f}, "
+                  f"host decoder {decoder}); dispatch_time s "
                   f"{fmt([m['dispatch_time'] for m in lines], 3)}; peak "
                   f"device memory {peak:.2f} GiB allocated, "
                   f"{peak_reserved:.2f} GiB reserved; eval of 16 images "
@@ -4895,6 +5191,10 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+
+    # -- 1b. the native decoder on the card's host: built, held bitwise
+    # against its plain version, timed per image and in the loaders
+    decoder_phase(card)
 
     # -- 2. kernel phase at the main paths' shapes
     for dtype, seed in ((torch.float32, 11), (torch.bfloat16, 12)):

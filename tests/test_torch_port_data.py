@@ -1,8 +1,9 @@
 """The port's host data path against the JAX package's, on the CPU:
-``load_coco_json``/``filter_empty`` records, ``transform_record`` (the
-JAX package's PIL branch: ``aldi_tpu.data.transforms._native`` is set to
-None here), ``StreamLoader``/``WeakStrongLoader``/``TestLoader`` batches,
-and the shift benchmark's generator. Everything is held exactly equal:
+``load_coco_json``/``filter_empty`` records, ``transform_record`` and the
+``StreamLoader``/``WeakStrongLoader``/``TestLoader`` batches on each
+decoder branch (both packages' native cores, or both on PIL:
+``tests/torch_port_common.py`` ``decoder_branch``), and the shift
+benchmark's generator. Everything is held exactly equal:
 images, sizes, boxes, classes, valid masks and scales, for the same numpy
 seeds. ``DevicePrefetcher`` on the CPU hands over the host batches as
 tensors and raises the loader's exceptions in the consumer.
@@ -28,15 +29,16 @@ from aldi_tpu_torch.data.transforms import transform_record
 from aldi_tpu_torch.tools.efficacy import make_shift_split
 from tests.shift_benchmark import make_shift_split as jax_make_shift_split
 from tests.synthetic_data import make_synthetic_coco
-from tests.torch_port_common import (loader_cfg, register_synthetic_both,
-                                     tiny_cfg)
+from tests.torch_port_common import (DECODERS, decoder_branch, loader_cfg,
+                                     register_synthetic_both, tiny_cfg)
 from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 
 
-@pytest.fixture(autouse=True)
-def pil_branch(monkeypatch):
-    """The JAX package decodes with PIL, as the port does."""
-    monkeypatch.setattr(jax_transforms, "_native", None)
+@pytest.fixture(params=DECODERS)
+def branch(request, monkeypatch):
+    """Both packages on one decoder branch."""
+    decoder_branch(monkeypatch, request.param)
+    return request.param
 
 
 def assert_equal_trees(got, want, what=""):
@@ -104,7 +106,7 @@ TRANSFORMS = {
 
 
 @pytest.mark.parametrize("case", sorted(TRANSFORMS))
-def test_transform_record_matches_jax(coco_json, case):
+def test_transform_record_matches_jax(coco_json, case, branch):
     jp, ir = coco_json
     records = [r for r in load_coco_json(jp, ir) if r["annotations"]]
     kw = dict(canvas=(160, 224), max_gt=4, **TRANSFORMS[case])
@@ -147,7 +149,7 @@ def _cfgs(names):
     return cfgs
 
 
-def test_weak_strong_loader_matches_jax(names):
+def test_weak_strong_loader_matches_jax(names, branch):
     """Batches 0-3 (across the epoch boundary of both streams), then
     batches 7 and 8 after seek(7)."""
     cfg, jcfg = _cfgs(names)
@@ -164,7 +166,7 @@ def test_weak_strong_loader_matches_jax(names):
     assert b["unlabeled"].keys() == {"image", "sizes"}
 
 
-def test_test_loader_matches_jax(names):
+def test_test_loader_matches_jax(names, branch):
     cfg, jcfg = _cfgs(names)
     got = list(TestLoader(names["val"], cfg, (128, 128), batch_size=3))
     want = list(JaxTestLoader(names["val"], jcfg, (128, 128), batch_size=3))

@@ -15,7 +15,6 @@ import os
 import numpy as np
 import pytest
 
-import aldi_tpu.data.transforms as jax_transforms
 import aldi_tpu.engine.evaluator as jax_evaluator
 import aldi_tpu_torch.engine.evaluator as port_evaluator
 from aldi_tpu.data import catalog as jax_catalog
@@ -23,7 +22,8 @@ from aldi_tpu.engine.coco_eval import \
     evaluate_detections as jax_evaluate_detections
 from aldi_tpu_torch.data import catalog as port_catalog
 from aldi_tpu_torch.engine.coco_eval import evaluate_detections
-from tests.torch_port_common import (loader_cfg, register_synthetic_both,
+from tests.torch_port_common import (DECODERS, decoder_branch,
+                                     loader_cfg, register_synthetic_both,
                                      tiny_detectors)
 from tests.torch_port_threads import capped_torch_threads  # noqa: F401
 from tests.torch_port_threads import torch_threads
@@ -118,9 +118,10 @@ def test_evaluate_detections_matches_jax(seed):
     assert 0 < want["bbox/AP50"] < 100
 
 
-def test_inference_on_dataset_matches_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(jax_transforms, "_native", None)
-    names = register_synthetic_both(tmp_path, "port_eval",
+@pytest.mark.parametrize("branch", DECODERS)
+def test_inference_on_dataset_matches_jax(tmp_path, monkeypatch, branch):
+    decoder_branch(monkeypatch, branch)
+    names = register_synthetic_both(tmp_path, f"port_eval_{branch}",
                                     {"val": (4, 4, False)})
     jdet, variables, tdet = tiny_detectors(seed=0)
     jdet._jit_infer = jdet.forward_inference  # un-jitted: no compile

@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-import aldi_tpu.data.transforms as jax_transforms
 import aldi_tpu.engine.evaluator as jax_evaluator
 from aldi_tpu.config import get_cfg as jax_get_cfg
 from aldi_tpu.data import catalog as jax_catalog
@@ -54,7 +53,8 @@ from tests.test_torch_port_ddp import check_metrics, check_params, rank_sums
 from tests.test_torch_port_train_step import (_jax_steps, _port_steps,
                                               close_rel, daod_cfg, make_batch,
                                               torch_tree)
-from tests.torch_port_common import (drop_weight_files, loader_cfg, max_err,
+from tests.torch_port_common import (DECODERS, decoder_branch,
+                                     drop_weight_files, loader_cfg, max_err,
                                      port_state_as_reference,
                                      register_synthetic_both,
                                      seeded_variables, tiny_detectors,
@@ -233,13 +233,15 @@ def data_cfg(get_cfg, names, files, out="", **overrides):
     return cfg
 
 
+@pytest.mark.parametrize("branch", DECODERS)
 @pytest.mark.parametrize("crop", [False, True])
-def test_loader_batches_carry_proposals_as_jax(data, monkeypatch, crop):
+def test_loader_batches_carry_proposals_as_jax(data, monkeypatch, crop,
+                                              branch):
     """The training loader's batches (with the same drawn choice for the
     image, its gt and its proposals; with RandomCrop too) and the test
     loader's, key for key; and a rank's share of a global batch under
     data parallelism keeps its images' proposals."""
-    monkeypatch.setattr(jax_transforms, "_native", None)
+    decoder_branch(monkeypatch, branch)
     names, files = data
     over = {"INPUT.CROP.ENABLED": crop, "INPUT.CROP.TYPE": "relative_range",
             "INPUT.CROP.SIZE": [0.6, 0.7]}
@@ -419,13 +421,14 @@ def test_fast_rcnn_step_matches_jax():
 
 
 # -------------------------------------------------------- the trainer
+@pytest.mark.parametrize("branch", DECODERS)
 def test_fast_rcnn_trainer_trains_and_scores_as_jax(data, tmp_path,
-                                                    monkeypatch):
+                                                    monkeypatch, branch):
     """2 iterations and ``test()`` (``tests/test_proposals.py:164-189``):
     no RPN loss in ``metrics.json``; the AP of the trained weights on the
     test file's proposals equals the JAX evaluator's on the same weights
     and proposals."""
-    monkeypatch.setattr(jax_transforms, "_native", None)
+    decoder_branch(monkeypatch, branch)
     names, files = data
     cfg = data_cfg(port_get_cfg, names, files, tmp_path / "out")
     cfg.SOLVER.MAX_ITER = 2

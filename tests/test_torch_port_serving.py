@@ -152,10 +152,25 @@ def test_port_imports_no_jax():
             "models/yolo.py", "models/detr.py", "parallel/__init__.py",
             "parallel/mesh.py", "data/proposals.py",
             "tools/calibrate_threshold.py", "tools/debug_pipeline.py",
-            "tools/visualize_featurespace.py"} <= names
+            "tools/visualize_featurespace.py", "data/native.py",
+            "utils/registry.py"} <= names
     banned = ("jax", "jaxlib", "flax", "aldi_tpu", "aldi_native")
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
     assert not bad, bad
     smoke = ROOT / "chip_smoke.py"
     assert not [m for m in _imports(smoke) if m.split(".")[0] in banned]
+
+
+def test_port_keeps_its_own_native_decoder():
+    """No file of the port (nor ``chip_smoke.py``) names the JAX package's
+    native source or its built extension: the port builds its decoder only
+    from ``aldi_tpu_torch/csrc/native_decode.cpp``."""
+    files = [f for f in sorted((ROOT / "aldi_tpu_torch").rglob("*"))
+             if f.is_file() and f.suffix in (".py", ".cpp", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if any(s in f.read_text() for s in ("native/aldi_native",
+                                               "aldi_native.cpp"))]
+    assert not bad, bad
+    assert (ROOT / "aldi_tpu_torch" / "csrc" / "native_decode.cpp").exists()

@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import aldi_tpu.data.transforms as jax_transforms
 import tools.calibrate_threshold as jax_calibrate
 import tools.debug_pipeline as jax_debug
 import tools.visualize_featurespace as jax_featurespace
@@ -35,7 +34,8 @@ from aldi_tpu_torch.tools import calibrate_threshold, debug_pipeline
 from aldi_tpu_torch.tools import visualize_featurespace
 from aldi_tpu_torch.utils import events
 from tests.test_torch_port_train_step import daod_cfg
-from tests.torch_port_common import (loader_cfg, max_err,
+from tests.torch_port_common import (DECODERS, decoder_branch,
+                                     loader_cfg, max_err,
                                      port_state_as_reference,
                                      register_synthetic_both,
                                      seeded_variables)
@@ -145,9 +145,10 @@ def test_tools_default_to_cuda(setup, monkeypatch):
             main(["--config-file", yaml, *args])
 
 
-def test_debug_pipeline_matches_jax(setup, monkeypatch):
+@pytest.mark.parametrize("branch", DECODERS)
+def test_debug_pipeline_matches_jax(setup, monkeypatch, branch):
     names, yaml, weights, root = setup
-    monkeypatch.setattr(jax_transforms, "_native", None)
+    decoder_branch(monkeypatch, branch)
     drawn = {}
 
     def capture(img, boxes, valid, path, **kw):

@@ -7,7 +7,8 @@ The tiny config is the one of ``tests/test_rcnn_forward.py``: ResNet depth
 ViTDet is the one of ``tests/test_backbones.py:22-42``: the ViTDet head
 config (LN conv box head, two RPN convs) over a ViT of embed 64, depth 3,
 2 heads, global block 1, patched into both packages' ``VIT_CONFIGS["b"]``
-by ``tiny_vit``.
+by ``tiny_vit``. ``decoder_branch`` puts both packages' host data paths on
+one decoder branch.
 """
 
 import contextlib
@@ -125,6 +126,31 @@ def vitdet_head_config(cfg):
     cfg.MODEL.RPN.CONV_DIMS = [-1, -1]
     return cfg
 
+
+
+DECODERS = ("pil", "native")
+
+
+def decoder_branch(monkeypatch, branch):
+    """Both packages' ``transform_record`` on one branch: "pil" (each
+    package's ``_native`` patched to None) or "native" (the JAX package's
+    ``aldi_native`` extension, which the conftest builds, skipping as the
+    JAX package's own tests do where it is absent, and the port's core,
+    which must build)."""
+    import pytest
+
+    import aldi_tpu.data.transforms as jax_transforms
+    import aldi_tpu_torch.data.transforms as port_transforms
+
+    if branch == "pil":
+        monkeypatch.setattr(jax_transforms, "_native", None)
+        monkeypatch.setattr(port_transforms, "_native", None)
+        return
+    assert branch == "native", branch
+    if jax_transforms._native is None:
+        pytest.skip("aldi_native is not built")
+    assert port_transforms._native.core() is not None, (
+        port_transforms._native.decoder())
 
 
 def register_synthetic_both(root, prefix, splits=None):
