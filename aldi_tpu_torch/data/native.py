@@ -8,21 +8,26 @@ system C++ compiler at the first decode (``ops/_build.py``
 ``load_host``), never on import, and called through ``ctypes``, which
 releases the interpreter lock during the call.
 
+The loaders follow the JAX package's rule: its extension links libjpeg
+and libpng, and where it does not build, the JAX package takes its whole
+PIL branch.
 - Where libjpeg's and libpng's headers and libraries are installed, the
   core reads and decodes the file itself, as the JAX package's does: its
-  output is bitwise equal to it on every PNG and JPEG.
-- Where they are not, the core is built without its codecs: PIL decodes
-  (``convert("RGB")``, as the PIL branch does) and the core resizes,
-  flips, swaps and pastes. The output is then bitwise equal to the JAX
-  package's on 8-bit RGB, gray and palette PNGs and on JPEGs, and follows
-  PIL's decode on RGBA PNGs (PIL drops the alpha, libpng composites it
-  onto black) and on 16-bit PNGs.
-- Where no core builds, ``core()`` is None and ``data/transforms.py``
-  takes its PIL branch, as the JAX package does without its extension.
+  output is bitwise equal to it on every PNG and JPEG. ``core()`` returns
+  it and ``data/transforms.py`` takes the native branch.
+- Where the core does not build with its codecs, ``core()`` is None and
+  ``data/transforms.py`` takes its PIL branch (PIL decodes and resizes),
+  bitwise the JAX package's PIL branch.
 
-``decoder()`` says which branch runs and why. The resize samples two taps
-per axis at half-pixel centres, where PIL's antialiased bilinear filter
-takes more when it shrinks: the two branches give different pixels.
+``decoder()`` says which branch the loaders take and why. The resize
+samples two taps per axis at half-pixel centres, where PIL's antialiased
+bilinear filter takes more when it shrinks: the two branches give
+different pixels.
+
+``Core(codecs=False)``, the core without its codecs (PIL decodes, the core
+resizes, flips, swaps and pastes), is not a branch of the loaders. It and
+its plain version ``load_resize_pad_plain`` are kept to measure the
+core's resize on a machine without the codecs.
 """
 
 import ctypes
@@ -108,18 +113,15 @@ def _open() -> dict:
         return {"core": Core(codecs=True),
                 "why": "libjpeg and libpng decode in the core"}
     except (RuntimeError, OSError) as e:
-        no_codecs = _error_line(e)
-    try:
-        return {"core": Core(codecs=False),
-                "why": f"PIL decodes, the core resizes (its codecs did not "
-                       f"build: {no_codecs})"}
-    except (RuntimeError, OSError) as e:
-        return {"core": None, "why": f"the native core did not build: {e}"}
+        return {"core": None,
+                "why": f"PIL decodes and resizes, as the JAX package does "
+                       f"without its extension: the native core did not "
+                       f"build with its codecs ({_error_line(e)})"}
 
 
 def core() -> Optional[Core]:
-    """The process's core, built and loaded at the first call (with its
-    codecs where they build, else without); None if it does not build."""
+    """The process's core with its codecs, built and loaded at the first
+    call; None if it does not build."""
     with _state_lock:
         if not _state:
             _state.update(_open())
@@ -127,8 +129,8 @@ def core() -> Optional[Core]:
 
 
 def decoder() -> Tuple[str, str]:
-    """("native", how it decodes) when the core builds and loads, else
-    ("pil", the compiler's error)."""
+    """The loaders' branch and why: ("native", how it decodes) when the
+    core builds with its codecs, else ("pil", the compiler's error)."""
     c = core()
     return ("native" if c is not None else "pil"), _state["why"]
 
@@ -140,7 +142,7 @@ def load_resize_pad(path, short_edge: int, max_size: int, canvas_h: int,
     flip, swap to BGR and paste onto a zeroed canvas, in the core. Returns
     (canvas [canvas_h, canvas_w, 3] uint8, out_h, out_w, scale). Raises
     ``OSError`` naming the path for a missing or undecodable file, and
-    ``RuntimeError`` if the core does not build."""
+    ``RuntimeError`` if the core does not build with its codecs."""
     c = core()
     if c is None:
         raise RuntimeError(_state["why"])

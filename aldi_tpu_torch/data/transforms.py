@@ -12,8 +12,10 @@ flipped, then pasted top-left onto the fixed canvas; boxes are transformed
 alongside; the actual (h, w) is reported so the model can clip and mask the
 padding. As in the JAX package, a choice without a crop is decoded,
 resized, flipped and pasted by the native core (``data/native.py``) when
-it builds, and every other choice by PIL; each branch gives the JAX
-package's bits on the same branch. A record's precomputed proposals
+it builds with its codecs (libjpeg and libpng, which the JAX package's
+extension links), and every other choice, and every choice where the core
+does not build so, by PIL; each branch gives the JAX package's bits on the
+same branch. A record's precomputed proposals
 (``MODEL.LOAD_PROPOSALS``, ``data/proposals.py``) take the same drawn
 choice as its image and gt boxes.
 """

@@ -732,14 +732,11 @@ class DETRDetector:
         if dd.BACKBONE != "resnet50":
             raise NotImplementedError(
                 f"DEFORMABLE_DETR.BACKBONE={dd.BACKBONE!r}: only 'resnet50' "
-                "is implemented, as in the JAX package (the reference's "
-                "shipped configs use no other, configs/Base-DETR.yaml:9); "
-                "ROADMAP.md notes it under 'Modules still to port'")
+                "is implemented (the reference's shipped configs use no "
+                "other, configs/Base-DETR.yaml:9)")
         if dd.NUM_FEATURE_LEVELS != 4:
             raise NotImplementedError(
-                "DEFORMABLE_DETR.NUM_FEATURE_LEVELS != 4 is not implemented, "
-                "as in the JAX package; ROADMAP.md notes it under 'Modules "
-                "still to port'")
+                "DEFORMABLE_DETR.NUM_FEATURE_LEVELS != 4 is not implemented")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)

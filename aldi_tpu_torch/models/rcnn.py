@@ -48,9 +48,6 @@ VIT_BACKBONES = ("build_vitdet_b_backbone", "build_vitdet_l_backbone")
 CONVNEXT_BACKBONE = "build_convnext_fpn_backbone"
 ALIGN_LEVELS = {"p2": 0, "p3": 1, "p4": 2, "p5": 3, "p6": 4}
 
-_NOT_PORTED = ("is not ported yet: ROADMAP.md lists it under 'Modules "
-               "still to port'")
-
 
 class GradReverse(torch.autograd.Function):
     """The identity forward, the negated gradient backward (the gradient
@@ -171,15 +168,19 @@ class RCNN(nn.Module):
 
 
 def _check_supported(cfg):
+    """The JAX package's errors, with its texts: an unknown backbone
+    (``aldi_tpu/models/rcnn.py:164``) and RES5_DILATION other than 1
+    (``:248-254``)."""
     name = cfg.MODEL.BACKBONE.NAME
     if name not in ("build_resnet_fpn_backbone", CONVNEXT_BACKBONE) \
             + VIT_BACKBONES:
-        raise NotImplementedError(f"MODEL.BACKBONE.NAME={name} {_NOT_PORTED}")
+        raise ValueError(f"Unknown backbone {name}")
     d = cfg.MODEL.RESNETS.RES5_DILATION
     if d != 1:
         raise NotImplementedError(
             f"MODEL.RESNETS.RES5_DILATION={d}: DC5 is not supported under "
-            "the FPN R-CNN family")
+            "the FPN R-CNN family (the DETR family supports DC5 via "
+            "MODEL.DEFORMABLE_DETR.DILATION)")
 
 
 class RCNNDetector:

@@ -4,7 +4,9 @@ K4 replaces ``aldi_tpu/ops/lapjv.py:97`` ``lapjv`` (XLA while_loops, not a
 Pallas kernel), which the DETR criterion runs on all of its L*B problems at
 once. Its plain version is ``lapjv.lapjv_plain``, equal to it on every
 input; ``custom_ops.lapjv`` dispatches between the two by device. The
-library is built on the first launch, never on import.
+library is built on the first launch, never on import. The entry point
+takes one warp per problem for m <= 512 (the DETR criterion's queries) and
+one thread block per problem above; ``kernel_for`` says which.
 """
 
 import ctypes
@@ -45,10 +47,7 @@ class Lapjv(_build.Kernel):
         settles = torch.empty(p, dtype=torch.int32, device=dev)
         if p == 0:
             return col4row, settles
-        lib = self.lib()
-        lib.aldi_lapjv_scratch_bytes.argtypes = [ctypes.c_int] * 3
-        lib.aldi_lapjv_scratch_bytes.restype = ctypes.c_size_t
-        nbytes = lib.aldi_lapjv_scratch_bytes(p, n, m)
+        nbytes = self.scratch_bytes(p, n, m)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         with torch.cuda.device(dev):
             self.launch(cost.data_ptr(), n_rows.data_ptr(), p, n, m,
@@ -56,6 +55,20 @@ class Lapjv(_build.Kernel):
                         scratch.data_ptr() if nbytes else None,
                         torch.cuda.current_stream(dev).cuda_stream)
         return col4row, settles
+
+    def scratch_bytes(self, p, n, m) -> int:
+        """Bytes of global scratch a launch on P problems of [n, m] takes
+        (0 unless the block kernel's state outgrows shared memory)."""
+        fn = self.lib().aldi_lapjv_scratch_bytes
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_size_t
+        return fn(p, n, m)
+
+    def kernel_for(self, n, m) -> str:
+        """The kernel a launch on problems of [n, m] takes (the library
+        chooses it by m, and by whether the costs fit in shared memory)."""
+        fn = self.lib().aldi_lapjv_kernel_name
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_char_p
+        return fn(n, m).decode()
 
 
 lapjv = Lapjv()

@@ -20,6 +20,14 @@ versions, with its times, bounds and listed pairs
 523,776 anchors, 100 synthetic gt slots), in the worst case (100 gt boxes
 that each cover the canvas) and, with ``--step-shapes``, at one R50-FPN step's K1 calls;
 the previous, dense source is ``tools/previous/match_iou_dense.cu``.
+The assignment solver (``lapjv``, K4): each version exactly equal to
+``lapjv_plain`` and cost-equal to scipy, with its times and ns per settle
+(``chip_smoke.check_lapjv``), on the kernel phase's 96 tied problems of
+[100, 300], on ``chip_smoke.LAPJV_CASES`` and, with ``--step-shapes``, at
+the K4 launches of one Deformable DETR training step (its warm-up step's,
+``chip_smoke.detr_training_phase``); the block-per-problem design of
+before the warp kernel is the current source with the warp kernel's widest
+m set to 0 (``"old=...lapjv.cu|kWarpMaxCols = 512=>kWarpMaxCols = 0"``).
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -32,6 +40,9 @@ Run from the repository root on a machine with a CUDA card::
     python3 -m aldi_tpu_torch.tools.kernel_variants match_iou \\
         old=aldi_tpu_torch/tools/previous/match_iou_dense.cu \\
         new=aldi_tpu_torch/csrc/match_iou.cu --step-shapes
+    python3 -m aldi_tpu_torch.tools.kernel_variants lapjv \\
+        "block=aldi_tpu_torch/csrc/lapjv.cu|kWarpMaxCols = 512=>kWarpMaxCols = 0" \\
+        warp=aldi_tpu_torch/csrc/lapjv.cu --step-shapes
 
 Each argument after the library name is ``name=source`` followed by any
 number of ``|old=>new`` text substitutions (Python escapes allowed). The
@@ -256,19 +267,51 @@ def run_match(args, names):
             cs.check_match(f"{name}, {label}", *inputs, plain_iters=0)
 
 
+def run_lapjv(args, names):
+    """K4: each version against ``lapjv_plain`` and scipy, with its times
+    (``chip_smoke.check_lapjv``), on the kernel phase's tied problems,
+    ``chip_smoke.LAPJV_CASES`` and, with ``--step-shapes``, a Deformable
+    DETR training step's launches; the plain version is timed on the first
+    version's pass only."""
+    import torch
+
+    import chip_smoke as cs
+    from aldi_tpu_torch.ops import _build
+    from aldi_tpu_torch.ops.lapjv_kernel import lapjv
+
+    cases = []
+    if args.step_shapes:  # the Deformable DETR step's own K4 launches
+        _, _, _, records = cs.detr_training_phase(args.card, [lapjv],
+                                                  timed=1)
+        cases += [(f"Deformable DETR step launch {i + 1}", inputs)
+                  for i, inputs in enumerate(records)]
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cases = [("synthetic with ties",
+              cs.tied_lapjv_problems(gen, 96, 100, 300))] + cases + [
+        (label, cs.lapjv_case(gen, *case))
+        for label, case in cs.LAPJV_CASES.items()]
+    for pass_, name in enumerate(names + names[:2]):
+        _build._loaded["lapjv"] = load_variant(args.out, name)
+        for label, inputs in cases:
+            cs.check_lapjv(f"{name}, {label}", *inputs, kernel_iters=10,
+                           plain_iters=int(pass_ == 0))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("library", choices=["flash_attn_fwd",
                                             "flash_attn_bwd",
                                             "roi_align_fwd",
                                             "roi_align_bwd",
-                                            "match_iou"])
+                                            "match_iou", "lapjv"])
     parser.add_argument("variants", nargs="+")
     parser.add_argument("--bounded-waits", action="store_true")
     parser.add_argument("--step-shapes", action="store_true",
                         help="ROIAlign and the matcher: also time each "
                         "version at the launches of one R50-FPN training "
-                        "step (chip_smoke.training_phase runs first)")
+                        "step (chip_smoke.training_phase runs first); the "
+                        "assignment solver: of one Deformable DETR step")
     parser.add_argument("--out", default="build/kernel_variants")
     args = parser.parse_args()
 
@@ -312,6 +355,8 @@ def main():
         return run_roi(args, names)
     if args.library == "match_iou":
         return run_match(args, names)
+    if args.library == "lapjv":
+        return run_lapjv(args, names)
     kernel = flash_attn_fwd if args.library == "flash_attn_fwd" \
         else flash_attn_bwd
     for name in names + names[:2]:

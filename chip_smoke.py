@@ -10,18 +10,20 @@ failure exits non-zero:
    serving and training paths from ``aldi_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together), with the build time and the
    compiler's register and spill report.
-1b. Decoder phase: the host data path's native decoder
-   (``aldi_tpu_torch/data/native.py``, ``csrc/native_decode.cpp``) built
-   with the system C++ compiler (its name, version and the build seconds;
-   a core that does not build fails the run), held bitwise against its
-   plain numpy version on noise-textured 2048x1024 PNGs and JPEGs
-   (quality 95) at short edges 800, 896 and 1024, flipped and not, BGR;
-   one image per call on one thread through ``apply_transform`` on the
-   native and the PIL branch (and PIL's decode alone), in ms, and on a
-   pool of 1 and 8 threads, in images/s;
+1b. Decoder phase: the loaders' branch on the card's host and why (the
+   native core where it builds with libjpeg and libpng, else PIL, as the
+   JAX package decides); the host data path's native core without its
+   codecs (``aldi_tpu_torch/data/native.py``, ``csrc/native_decode.cpp``)
+   built with the system C++ compiler (its name, version and the build
+   seconds; a core that does not build fails the run), held bitwise
+   against its plain numpy version on noise-textured 2048x1024 PNGs and
+   JPEGs (quality 95) at short edges 800, 896 and 1024, flipped and not,
+   BGR; one image per call on one thread through that core, through
+   ``apply_transform`` on the loaders' branch and PIL's decode alone, in
+   ms, and the first two on a pool of 1 and 8 threads, in images/s;
    ``WeakStrongLoader`` at the published 24 + 24 with TPU.DATA_THREADS 8
-   and 1 and ``TestLoader``, on each branch, in images/s; with the host
-   CPU's model and core count.
+   and 1 and ``TestLoader`` on the loaders' branch, in images/s; with the
+   host CPU's model and core count.
 2. Kernel phase, each kernel against its plain PyTorch version at the
    main paths' shapes, with its time, the plain version's time and the
    least time the card could take: the ROIAlign forward (8 images, 1000
@@ -215,8 +217,13 @@ failure exits non-zero:
    300 queries, 8 classes, 800x1344, float32, ``seeded_weights``), whose
    only kernel is K4, the Hungarian criterion's assignment solver: first,
    in the kernel phase, K4 on a synthetic set of 96 problems of [100, 300]
-   with ties (duplicated rows, columns clipped to 1e4), exactly equal to
-   ``lapjv_plain`` and cost-equal to scipy's ``linear_sum_assignment``.
+   with ties (duplicated rows, columns clipped to 1e4) and on its shape
+   cases (``LAPJV_CASES``: near-duplicate rows whose searches run as long
+   as on 100 pseudo-labels, m of 77, 300 and 512, n = m, costs too large
+   for shared memory, no rows, -0/+0 with exact ties, and m = 600, the
+   block kernel), exactly equal to ``lapjv_plain`` and cost-equal to
+   scipy's ``linear_sum_assignment``, each line naming the kernel taken,
+   the settles per problem and the ns per settle.
    Then serving (1 warm-up + 3 timed requests of 8 images, a request by
    stage, a traced request with MSDA's share of the busy time); the
    ALDI-Best-DETR DAOD step at 4 + 4 (TEACHER.THRESHOLD 0, so every
@@ -2164,20 +2171,6 @@ def texture_split(root, name, n, seed, fmt, size=(1024, 2048)):
     return path, img_dir, paths
 
 
-class pil_branch:
-    """Within the block, ``apply_transform`` takes its PIL branch (the
-    port's ``data/transforms.py`` ``_native`` set to None, as the tests
-    choose a branch)."""
-
-    def __enter__(self):
-        import aldi_tpu_torch.data.transforms as tr
-        self.saved, tr._native = tr._native, None
-
-    def __exit__(self, *exc):
-        import aldi_tpu_torch.data.transforms as tr
-        tr._native = self.saved
-
-
 def loader_images_per_s(cfg, threads, batches):
     """``WeakStrongLoader`` at SOLVER.IMS_PER_BATCH (24 + 24) with
     ``threads`` TPU.DATA_THREADS per stream: images/s over ``batches``
@@ -2199,15 +2192,17 @@ def loader_images_per_s(cfg, threads, batches):
 
 
 def decoder_phase(card):
-    """The native decoder on the card's host (``aldi_tpu_torch/data/
-    native.py``, ``csrc/native_decode.cpp``): its build (compiler, version,
-    seconds; a core that does not build fails the run), the core held
+    """The host decoder on the card's host (``aldi_tpu_torch/data/
+    native.py``, ``csrc/native_decode.cpp``): the loaders' branch and why
+    (native where the core builds with libjpeg and libpng, else PIL, as the
+    JAX package decides), the core without its codecs built (compiler,
+    version, seconds; a core that does not build fails the run) and held
     bitwise against ``load_resize_pad_plain`` on noise-textured 2048x1024
-    PNGs and JPEGs, one image per call on one thread through
-    ``apply_transform`` on each branch, ``WeakStrongLoader`` at 24 + 24
-    with 8 and 1 threads and ``TestLoader`` on each branch. Returns the
+    PNGs and JPEGs; one image per call on one thread: PIL's decode alone,
+    that core and ``apply_transform`` on the loaders' branch; both on a
+    thread pool of 1 and 8; ``WeakStrongLoader`` at 24 + 24 with 8 and 1
+    threads and ``TestLoader`` on the loaders' branch. Returns the
     numbers."""
-    import contextlib
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -2228,16 +2223,31 @@ def decoder_phase(card):
                              text=True).stdout.splitlines()[0]
     t0 = time.perf_counter()
     branch, why = native.decoder()
+    branch_s = time.perf_counter() - t0
+    print(f"[decoder] the loaders' branch: {branch} ({why}), decided in "
+          f"{branch_s:.2f} s; compiler {compiler} ({version}); host CPU "
+          f"{host_cpu()}; card {card}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        core = native.Core(codecs=False)
+    except (RuntimeError, OSError) as e:
+        fail(f"the native core without codecs did not build on this "
+             f"machine: {e}")
     build_s = time.perf_counter() - t0
-    print(f"[decoder] {branch}: {why}; compiler {compiler} ({version}); "
-          f"built and loaded in {build_s:.2f} s; host CPU {host_cpu()}; "
-          f"card {card}", flush=True)
-    if branch != "native":
-        fail(f"the native decoder did not build on this machine: {why}")
-    core = native.core()
-    numbers = {"decoder": branch, "how": why, "codecs": core.codecs,
+    print(f"[decoder] the core without its codecs (PIL decodes, the core "
+          f"resizes; no branch of the loaders) built and loaded in "
+          f"{build_s:.2f} s", flush=True)
+    numbers = {"decoder": branch, "how": why, "branch_s": branch_s,
                "build_s": build_s, "host_cpu": host_cpu(), "card": card}
     tmp = tempfile.mkdtemp(prefix="aldi_smoke_decoder_")
+
+    def loaders(r):
+        return apply_transform(r, (896, False, None), 2048, (1024, 2048))
+
+    def core_only(r):
+        return core.load_resize_pad(r["file_name"], 896, 2048, 1024, 2048,
+                                    True, False)
+
     try:
         t0 = time.perf_counter()
         splits = {fmt: texture_split(tmp, f"decoder_{fmt}", DECODER_IMAGES,
@@ -2271,62 +2281,52 @@ def decoder_phase(card):
               f"in {checks} calls (short edges {DECODER_SHORTS}, flipped "
               f"and not, BGR, PNG and JPEG; max abs err 0)", flush=True)
 
-        # one image per call, one thread: PIL's decode alone, then each
-        # branch of apply_transform at short edge 896
+        # one image per call, one thread, short edge 896: PIL's decode
+        # alone, the core without its codecs, the loaders' branch
         per_call = {}
         for fmt, (_, _, paths) in splits.items():
             recs = [{"file_name": p, "image_id": i, "annotations": []}
                     for i, p in enumerate(paths)]
             row = {}
-            for label in ("decode", "native", "pil"):
+            for label, fn in (("decode", lambda r: native.decode_rgb(
+                    r["file_name"])), ("core", core_only),
+                    (f"loaders_{branch}", loaders)):
                 times = []
                 for r in recs:
                     t0 = time.perf_counter()
-                    if label == "decode":
-                        native.decode_rgb(r["file_name"])
-                    elif label == "native":
-                        apply_transform(r, (896, False, None), 2048,
-                                        (1024, 2048))
-                    else:
-                        with pil_branch():
-                            apply_transform(r, (896, False, None), 2048,
-                                            (1024, 2048))
+                    fn(r)
                     times.append((time.perf_counter() - t0) * 1e3)
                 row[f"{label}_ms"] = median(times)
             per_call[fmt] = row
-            ratio = row["pil_ms"] / row["native_ms"]
             print(f"[decoder] one {fmt} per call on one thread, median of "
                   f"{len(recs)} ms: PIL's decode alone "
-                  f"{row['decode_ms']:.2f}; apply_transform at short edge "
-                  f"896 native {row['native_ms']:.2f}, PIL branch "
-                  f"{row['pil_ms']:.2f} (x{ratio:.2f}); card {card}",
-                  flush=True)
+                  f"{row['decode_ms']:.2f}; at short edge 896 the core "
+                  f"{row['core_ms']:.2f}, apply_transform on the loaders' "
+                  f"branch ({branch}) {row[f'loaders_{branch}_ms']:.2f}; "
+                  f"card {card}", flush=True)
         numbers["per_call"] = per_call
 
-        # images/s of apply_transform on a pool of 1 and 8 threads (no
-        # loader: each image its own task), to tell the decode's own
-        # scaling from the loader's batches in flight
+        # images/s on a pool of 1 and 8 threads (no loader: each image its
+        # own task), to tell the decode's own scaling from the loader's
+        # batches in flight
         recs = [{"file_name": p, "image_id": i, "annotations": []}
                 for i, p in enumerate(splits["png"][2] * 2)]
         pool_rates = {}
         for threads in (1, 8):
-            for label in ("native", "pil"):
+            for label, fn in (("core", core_only),
+                              (f"loaders ({branch})", loaders)):
                 with ThreadPoolExecutor(threads) as pool:
                     t0 = time.perf_counter()
-                    with (pil_branch() if label == "pil"
-                          else contextlib.nullcontext()):
-                        list(pool.map(lambda r: apply_transform(
-                            r, (896, False, None), 2048, (1024, 2048)),
-                            recs))
+                    list(pool.map(fn, recs))
                     rate = len(recs) / (time.perf_counter() - t0)
                 pool_rates[f"{label}, {threads} threads"] = rate
         numbers["pool_images_per_s"] = pool_rates
-        print(f"[decoder] apply_transform at short edge 896 on a thread "
-              f"pool, {len(recs)} PNGs, images/s: {json.dumps(pool_rates)};"
-              f" card {card}", flush=True)
+        print(f"[decoder] short edge 896 on a thread pool, {len(recs)} "
+              f"PNGs, images/s: {json.dumps(pool_rates)}; card {card}",
+              flush=True)
 
         # the training loader at the published 24 + 24 on the PNG split
-        # (Cityscapes' format), and the test loader
+        # (Cityscapes' format), and the test loader, on the loaders' branch
         names = {}
         for fmt, (jpath, img_dir, _) in splits.items():
             names[fmt] = f"smoke_decoder_{fmt}"
@@ -2337,37 +2337,25 @@ def decoder_phase(card):
         cfg.DATASETS.TRAIN = (names["png"],)
         cfg.DATASETS.UNLABELED = (names["png"],)
         cfg.DATASETS.TEST = (names["png"],)
-        rates = {}
-        for threads, batches in ((8, 3), (1, 2)):
-            for label in ("native", "pil"):
-                if label == "pil":
-                    with pil_branch():
-                        rate = loader_images_per_s(cfg, threads, batches)
-                else:
-                    rate = loader_images_per_s(cfg, threads, batches)
-                rates[f"{label}, {threads} threads"] = rate
+        rates = {f"{branch}, {threads} threads": loader_images_per_s(
+            cfg, threads, batches) for threads, batches in ((8, 3), (1, 2))}
         numbers["weak_strong_images_per_s"] = rates
-        print(f"[decoder] WeakStrongLoader at 24 + 24 PNGs, TPU.PREFETCH "
-              f"{cfg.TPU.PREFETCH}, images/s (from construction, 3 batches "
-              f"at 8 threads, 2 at 1): {json.dumps(rates)}; the trainer "
-              f"takes 48 images per step (~0.8 s: 60 images/s); host CPU "
-              f"{host_cpu()}; card {card}", flush=True)
-        test_rates = {}
-        for label in ("native", "pil"):
-            t0 = time.perf_counter()
-            if label == "pil":
-                with pil_branch():
-                    n = sum(len(m) for _, m in TestLoader(
-                        names["png"], cfg, (1024, 2048), batch_size=8))
-            else:
-                n = sum(len(m) for _, m in TestLoader(
-                    names["png"], cfg, (1024, 2048), batch_size=8))
-            test_rates[label] = n / (time.perf_counter() - t0)
-        numbers["test_images_per_s"] = test_rates
+        print(f"[decoder] WeakStrongLoader at 24 + 24 PNGs on the loaders' "
+              f"branch ({branch}), TPU.PREFETCH {cfg.TPU.PREFETCH}, "
+              f"images/s (from construction, 3 batches at 8 threads, 2 at "
+              f"1): {json.dumps(rates)}; the trainer takes 48 images per "
+              f"step (~0.8 s: 60 images/s); host CPU {host_cpu()}; card "
+              f"{card}", flush=True)
+        t0 = time.perf_counter()
+        n = sum(len(m) for _, m in TestLoader(names["png"], cfg,
+                                              (1024, 2048), batch_size=8))
+        numbers["test_images_per_s"] = {branch: n / (time.perf_counter()
+                                                     - t0)}
         print(f"[decoder] TestLoader (eval, one thread, MIN_SIZE_TEST "
               f"{cfg.INPUT.MIN_SIZE_TEST}: scale 1) on {DECODER_IMAGES} "
-              f"PNGs, images/s: "
-              f"{json.dumps(test_rates)}; card {card}", flush=True)
+              f"PNGs, the loaders' branch, images/s: "
+              f"{json.dumps(numbers['test_images_per_s'])}; card {card}",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
@@ -4525,8 +4513,71 @@ def tied_lapjv_problems(gen, p, n, m):
     clipped = torch.rand((p, 1, m), generator=gen, device="cuda") < 0.2
     cost = torch.where(clipped, torch.full((), 1e4, device="cuda"), cost)
     n_rows = torch.randint(0, n + 1, (p,), generator=gen, device="cuda")
-    n_rows[:4] = n
+    n_rows[:min(4, p)] = n
     return cost.contiguous(), n_rows.to(torch.int32)
+
+
+def signed_zero_lapjv_problems(gen, p, n, m):
+    """P problems of [n, m] of exact ties and zeros of both signs: every
+    row is one row of -0.0, +0.0, 1 and 2 per problem, with a twentieth of
+    its entries replaced by -1, -0.0 or +0.0, so that the searches run
+    through assigned columns on ties and signed zeros reach the reduced
+    costs and the duals; n_rows as ``tied_lapjv_problems``."""
+    import torch
+
+    base = torch.tensor([-0.0, 0.0, 1.0, 2.0], device="cuda")[torch.randint(
+        0, 4, (p, 1, m), generator=gen, device="cuda")]
+    own = torch.tensor([-1.0, -0.0, 0.0], device="cuda")[torch.randint(
+        0, 3, (p, n, m), generator=gen, device="cuda")]
+    pick = torch.rand((p, n, m), generator=gen, device="cuda") < 0.05
+    cost = torch.where(pick, own, base.expand(p, n, m))
+    n_rows = torch.randint(0, n + 1, (p,), generator=gen, device="cuda")
+    n_rows[:min(4, p)] = n
+    return cost.contiguous(), n_rows.to(torch.int32)
+
+
+def near_duplicate_lapjv_problems(gen, p, n, m):
+    """P problems of [n, m] whose rows are one row of U(0, 1) per problem
+    plus U(0, 0.05) noise each: the rows want the same columns, as a
+    teacher's 100 overlapping pseudo-labels do, so the searches run long
+    (about 4,800 settles a problem at [100, 300], like the DETR step's
+    launch on 100 pseudo-labels); every row solved."""
+    import torch
+
+    base = torch.rand((p, 1, m), generator=gen, device="cuda")
+    noise = torch.rand((p, n, m), generator=gen, device="cuda")
+    cost = base + 0.05 * noise
+    return cost.contiguous(), torch.full((p,), n, dtype=torch.int32,
+                                         device="cuda")
+
+
+# K4's shape cases beside the DETR step's own launches: label -> (problems,
+# n, m, costs, n_rows); costs "tied" (tied_lapjv_problems), "zeros"
+# (signed_zero_lapjv_problems) or "near" (near_duplicate_lapjv_problems),
+# n_rows "mixed" (theirs) or "none" (all 0)
+LAPJV_CASES = {
+    "near-duplicate rows, long searches": (24, 100, 300, "near", "mixed"),
+    "m = 77, not a multiple of 32": (24, 50, 77, "tied", "mixed"),
+    "m = 512, the warp kernel's widest": (8, 100, 512, "tied", "mixed"),
+    "n = m = 128": (8, 128, 128, "tied", "mixed"),
+    "n = m = 77": (8, 77, 77, "tied", "mixed"),
+    "costs in global memory, 160 x 480": (4, 160, 480, "tied", "mixed"),
+    "n_rows all 0": (8, 100, 300, "tied", "none"),
+    "-0, +0 and exact ties": (24, 100, 300, "zeros", "mixed"),
+    "-0, +0 and exact ties, n = m = 100": (8, 100, 100, "zeros", "mixed"),
+    "m = 600, the block kernel": (4, 50, 600, "tied", "mixed"),
+}
+
+
+def lapjv_case(gen, problems, n, m, costs, n_rows):
+    """One of LAPJV_CASES' problem sets on the card: (cost, n_rows)."""
+    make = {"tied": tied_lapjv_problems,
+            "zeros": signed_zero_lapjv_problems,
+            "near": near_duplicate_lapjv_problems}[costs]
+    cost, rows = make(gen, problems, n, m)
+    if n_rows == "none":
+        rows.zero_()
+    return cost, rows
 
 
 def lapjv_bound(cost, settles):
@@ -4548,9 +4599,13 @@ def check_lapjv(label, cost, n_rows, kernel_iters=20, plain_iters=1):
     whose cost (summed in float64) equals
     ``scipy.optimize.linear_sum_assignment``'s to float32 rounding (1e-6
     of the summed magnitude, plus 1e-3). Times: the kernel's wrapper, the
-    plain version on the card, and scipy on the host with the copy of the
-    costs included (the yardstick; no PyTorch call solves an assignment,
-    so ``library_ms`` stays null). Returns the kernels line's numbers."""
+    kernel alone (its C entry point on preallocated outputs, as
+    ``launch_ms``), the plain version on the card (``plain_iters`` 0: not
+    timed), and scipy on the host with the copy of the costs included (the
+    yardstick; no PyTorch call solves an assignment, so ``library_ms``
+    stays null). ns per settle: the kernel alone over the most settles of
+    any problem, since the problems run side by side and each one's
+    settles in sequence. Returns the kernels line's numbers."""
     import numpy as np
     import torch
     from scipy.optimize import linear_sum_assignment
@@ -4581,6 +4636,9 @@ def check_lapjv(label, cost, n_rows, kernel_iters=20, plain_iters=1):
     worst = 0.0
     for i, r in enumerate(ref):
         if r is None:
+            if (col[i] != -1).any():
+                fail(f"lapjv ({label}): problem {i} has no rows to solve "
+                     f"but assigns some")
             continue
         k = len(r[0])
         cols = col[i, :k]
@@ -4594,23 +4652,50 @@ def check_lapjv(label, cost, n_rows, kernel_iters=20, plain_iters=1):
                  f"{best} (tol {tol:.3g})")
         worst = max(worst, abs(mine - best))
     ms = cuda_ms(lambda: lapjv(cost, n_rows), kernel_iters)
-    plain_ms = cuda_ms(lambda: lapjv_plain(cost, n_rows), plain_iters,
-                       warmup=0)
+    p, n, m = cost.shape
+    out, out_settles = torch.empty_like(got), torch.empty_like(settles)
+    nbytes = lapjv.scratch_bytes(p, n, m)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=cost.device)
+    kernel_ms = launch_ms(lapjv, (
+        cost.data_ptr(), n_rows.data_ptr(), p, n, m, out.data_ptr(),
+        out_settles.data_ptr(), scratch.data_ptr() if nbytes else None,
+        torch.cuda.current_stream().cuda_stream), kernel_iters)
+    plain_ms = (cuda_ms(lambda: lapjv_plain(cost, n_rows), plain_iters,
+                        warmup=0) if plain_iters else None)
     bound_ms, bound_by = lapjv_bound(cost, settles)
     st = settles.float()
-    p, n, m = cost.shape
+    most = int(st.max()) if p else 0
+    ns_per_settle = kernel_ms * 1e6 / most if most else None
+    kernel = lapjv.kernel_for(n, m)
     print(f"[kernel] lapjv (K4), {label}: {p} problems of [{n}, {m}], rows "
-          f"solved {int(n_rows.sum())} (max {int(n_rows.max())}); col4row "
-          f"and settles exactly equal to lapjv_plain; cost equal to scipy's "
-          f"(worst |difference| {worst:.3g}); settles per problem mean "
-          f"{float(st.mean()):.1f}, max {int(st.max())}; kernel {ms:.4f} ms "
-          f"(the wrapper's whole call), plain {plain_ms:.2f} ms, scipy on "
-          f"the host with the copy {scipy_ms:.2f} ms, bound {bound_ms:.5f} "
-          f"ms ({bound_by}), {bound_ms / ms:.5f} of the bound", flush=True)
-    return dict(max_abs_err=float(unequal), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, scipy_ms=scipy_ms,
-                settles_mean=float(st.mean()), settles_max=int(st.max()),
-                problems=[p, n, m])
+          f"solved {int(n_rows.sum())} (max {int(n_rows.max())}); {kernel}; "
+          f"col4row and settles exactly equal to lapjv_plain; cost equal to "
+          f"scipy's (worst |difference| {worst:.3g}); settles per problem "
+          f"mean {float(st.mean()):.1f}, max {most}; wrapper {ms:.4f} ms, "
+          f"kernel alone {kernel_ms:.4f} ms"
+          + (f" ({ns_per_settle:.1f} ns per settle of the longest problem)"
+             if ns_per_settle else "")
+          + (f", plain {plain_ms:.2f} ms" if plain_ms is not None else "")
+          + f", scipy on the host with the copy {scipy_ms:.2f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.5f} of the "
+          f"bound", flush=True)
+    return dict(max_abs_err=float(unequal), ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                scipy_ms=scipy_ms, settles_mean=float(st.mean()),
+                settles_max=most, ns_per_settle=ns_per_settle,
+                kernel=kernel, problems=[p, n, m])
+
+
+def check_lapjv_cases(seed=57):
+    """K4 on each of LAPJV_CASES, exactly equal to ``lapjv_plain`` and
+    cost-equal to scipy (the plain version untimed). Returns {label:
+    numbers}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {label: check_lapjv(label, *lapjv_case(gen, *case),
+                               kernel_iters=5, plain_iters=0)
+            for label, case in LAPJV_CASES.items()}
 
 
 def detr_config(overrides=None):
@@ -5192,8 +5277,9 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    # -- 1b. the native decoder on the card's host: built, held bitwise
-    # against its plain version, timed per image and in the loaders
+    # -- 1b. the host decoder on the card's host: the loaders' branch and
+    # why; the core without codecs built, held bitwise against its plain
+    # version and timed per image; the loaders timed on their branch
     decoder_phase(card)
 
     # -- 2. kernel phase at the main paths' shapes
@@ -5250,6 +5336,9 @@ def main():
     k4_synthetic = check_lapjv(
         "synthetic with ties", *tied_lapjv_problems(
             torch.Generator(device="cuda").manual_seed(26), 96, 100, 300))
+    # and its shape cases: m not a multiple of 32, n = m, costs too large
+    # for shared memory, no rows, signed zeros, the block kernel (m > 512)
+    k4_cases = check_lapjv_cases()
     torch.cuda.empty_cache()
 
     # -- 3. serving phase: each detector through its entry points (K2 on
@@ -5484,8 +5573,9 @@ def main():
         entries.append(entry)
     # K4: launches from the DETR training steps; the numbers of the warm-up
     # step's first launch (the labeled_strong stream's 24 problems)
-    keys = ("ms", "plain_ms", "scipy_ms", "bound_ms", "max_abs_err",
-            "settles_mean", "settles_max", "problems")
+    keys = ("ms", "kernel_ms", "plain_ms", "scipy_ms", "bound_ms",
+            "max_abs_err", "settles_mean", "settles_max", "ns_per_settle",
+            "kernel", "problems")
     entries.append({
         "name": lapjv.name, "route": "cuda", "source": lapjv.source,
         "replaces": lapjv.replaces, "launches": detr_train["lapjv"],
@@ -5494,7 +5584,9 @@ def main():
                              if "lapjv" in c},
         "step_launches": {"Deformable DETR training": [
             {key: r[key] for key in keys} for r in k4_steps]},
-        "synthetic_tied": {key: k4_synthetic[key] for key in keys}})
+        "synthetic_tied": {key: k4_synthetic[key] for key in keys},
+        "cases": {label: {key: r[key] for key in keys}
+                  for label, r in k4_cases.items()}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

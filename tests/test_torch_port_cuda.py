@@ -39,10 +39,11 @@ from aldi_tpu_torch.ops.roi_align import (box_levels, roi_align_batched,
                                           roi_align_plain,
                                           roi_align_plain_backward)
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
-from chip_smoke import (ALIGN, CONVNEXT_ALDI, FLAGSHIP, VIT_ALDI,
-                        attn_inputs, check_attn, tiny_artifact_check,
-                        tiny_reference_check, tiny_train_reference_check,
-                        tiny_vit, tied_lapjv_problems)
+from chip_smoke import (ALIGN, CONVNEXT_ALDI, FLAGSHIP, LAPJV_CASES,
+                        VIT_ALDI, attn_inputs, check_attn, lapjv_case,
+                        tiny_artifact_check, tiny_reference_check,
+                        tiny_train_reference_check, tiny_vit,
+                        tied_lapjv_problems)
 from torch_port_match_cases import CASES as MATCH_CASES
 from torch_port_match_cases import match_case
 from torch_port_threads import capped_torch_threads  # noqa: F401
@@ -214,6 +215,35 @@ def test_lapjv_kernel_equals_plain(card, shape):
     random = torch.rand(shape, generator=gen, device=card)
     for a, b in zip(lapjv(random, n_rows), lapjv_plain(random, n_rows)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("label", list(LAPJV_CASES))
+def test_lapjv_kernel_cases_equal_plain(card, label):
+    """K4 on ``chip_smoke.LAPJV_CASES`` (near-duplicate rows and their
+    long searches, m not a multiple of 32, n = m, costs too large for
+    shared memory, no rows, -0/+0 and exact ties, the block kernel at
+    m > 512): col4row and the settles exactly
+    ``lapjv_plain``'s, each solved problem's cost scipy's, and the kernel
+    the library names the one its m calls for."""
+    from scipy.optimize import linear_sum_assignment
+
+    gen = torch.Generator(device=card).manual_seed(58)
+    cost, n_rows = lapjv_case(gen, *LAPJV_CASES[label])
+    p, n, m = cost.shape
+    got, settles = lapjv(cost, n_rows)
+    want, want_settles = lapjv_plain(cost, n_rows)
+    assert torch.equal(got, want) and torch.equal(settles, want_settles)
+    kernel = lapjv.kernel_for(n, m)
+    assert kernel.startswith("block" if m > 512 else "warp"), kernel
+    c64 = cost.double().cpu().numpy()
+    for i, k in enumerate(n_rows.tolist()):
+        cols = got[i].cpu().numpy()
+        assert (cols[k:] == -1).all()
+        if k:
+            rows, best = linear_sum_assignment(c64[i, :k])
+            mine = c64[i, np.arange(k), cols[:k]].sum()
+            tol = 1e-6 * np.abs(c64[i, rows, best]).sum() + 1e-3
+            assert abs(mine - c64[i, rows, best].sum()) <= tol, (label, i)
 
 
 @pytest.mark.parametrize("case", MATCH_CASES)

@@ -3,13 +3,15 @@
 ``aldi_native`` extension and against its plain numpy version, on the CPU.
 
 The core is built here twice: with its codecs (libjpeg and libpng decode,
-as in ``aldi_native``) and without them (PIL decodes and the core resizes,
-the build a machine without libjpeg's and libpng's headers gets). Both are
-held bitwise against ``aldi_native`` where their decodes agree, and the
-core without codecs against the plain version everywhere. Then
-``transform_record`` and the loaders on the native branch against the JAX
-package's native branch, failures (a missing or truncated file, a core
-that does not build), and eight threads building the core at once.
+as in ``aldi_native``: the loaders' native branch) and without them (PIL
+decodes and the core resizes: no branch of the loaders, kept to time the
+core's resize where the codecs are missing). Both are held bitwise against
+``aldi_native`` where their decodes agree, and the core without codecs
+against the plain version everywhere. Then ``transform_record`` and the
+loaders on the native branch against the JAX package's native branch,
+failures (a missing or truncated file, codecs that do not link and a core
+that does not build: the PIL branch, as the JAX package without its
+extension), and eight threads building the core at once.
 """
 
 import os
@@ -364,9 +366,11 @@ def test_threads_build_one_library(tmp_path, monkeypatch, images):
 
 def test_decoder_falls_back_when_the_codecs_do_not_build(
         tmp_path, monkeypatch, records):
-    """Without the codecs (a library that does not link) the core is built
-    without them: ``decoder()`` says PIL decodes, and ``transform_record``
-    still equals the JAX package's native branch on 8-bit images."""
+    """Without the codecs (a library that does not link) the loaders take
+    the PIL branch, as the JAX package does where its extension does not
+    build: ``decoder()`` says "pil" and names the link error, and
+    ``transform_record`` equals the JAX package's with ``_native`` None,
+    bitwise, though the core without its codecs still builds."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(native, "_state", {})
@@ -374,10 +378,11 @@ def test_decoder_falls_back_when_the_codecs_do_not_build(
                         (*native.CODEC_FLAGS, "-laldi_no_such_library"))
     name, why = native.decoder()
     print(f"decoder: {name} ({why})")
-    assert name == "native" and why.startswith("PIL decodes")
+    assert name == "pil" and why.startswith("PIL decodes and resizes")
     assert "aldi_no_such_library" in why
-    assert not native.core().codecs
-    decoder_branch(monkeypatch, "native")
+    assert native.core() is None
+    assert not native.Core(codecs=False).codecs
+    monkeypatch.setattr(jax_transforms, "_native", None)
     kw = dict(TRANSFORMS["train"], canvas=(160, 224), max_gt=4,
               proposal_topk=8)
     for seed, rec in enumerate(records):

@@ -100,10 +100,11 @@ def test_build_detector_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    # Deformable DETR is ported; a backbone other than resnet50 is not (the
-    # JAX package raises there too)
+    # Deformable DETR is ported; a backbone other than resnet50 raises the
+    # JAX package's error, with its text
     pytest.param({"MODEL.META_ARCHITECTURE": "DeformableDETR",
-                  "MODEL.DEFORMABLE_DETR.BACKBONE": "resnet101"}, "ROADMAP",
+                  "MODEL.DEFORMABLE_DETR.BACKBONE": "resnet101"},
+                 "only 'resnet50' is implemented",
                  id="MODEL.META_ARCHITECTURE-DeformableDETR"),
     # precomputed proposals are ported for the R-CNN; with another
     # meta-architecture they raise, as in the JAX package
@@ -121,6 +122,37 @@ def test_unported_configs_raise(overrides, match):
         node[leaf] = value
     with pytest.raises(NotImplementedError, match=match):
         build_detector(tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.BACKBONE.NAME", "build_no_such_backbone"),
+    ("MODEL.RESNETS.RES5_DILATION", 2),
+])
+def test_unknown_options_raise_what_jax_raises(key, value):
+    """An unknown backbone and a dilated res5 under the FPN: the port
+    raises the JAX package's exception type with its message. The JAX
+    package raises the first where flax runs the detector's ``setup``
+    (here under ``jax.eval_shape`` of ``init_variables``), the second when
+    the detector is built."""
+    import jax
+
+    from aldi_tpu.models import build_detector as jax_build_detector
+
+    jcfg, tcfg = tiny_cfgs()
+    errors = []
+    for cfg, build in ((jcfg, lambda c: jax.eval_shape(
+            jax_build_detector(c).init_variables, jax.random.PRNGKey(0))),
+            (tcfg, lambda c: build_detector(c, device="cpu"))):
+        *parents, leaf = key.split(".")
+        node = cfg
+        for part in parents:
+            node = node[part]
+        node[leaf] = value
+        with pytest.raises(Exception) as info:
+            build(cfg)
+        errors.append((type(info.value), str(info.value)))
+    print(f"{key} {value}: {errors[1]}")
+    assert errors[1] == errors[0]
 
 
 def _imports(path):
