@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from ..utils.tracing import sync
+
 _GRAY = (0.299, 0.587, 0.114)
 _BLUR_RADIUS = 6  # covers 3*sigma at sigma_max=2.0
 
@@ -39,7 +41,8 @@ def _blend(src, dst, w):
 
 
 def _gray(img):
-    weights = torch.tensor(_GRAY, dtype=img.dtype, device=img.device)
+    with sync("gray_weights_copy"):  # from host memory, the copy waits
+        weights = torch.tensor(_GRAY, dtype=img.dtype, device=img.device)
     return (img * weights).sum(-1, keepdim=True)
 
 

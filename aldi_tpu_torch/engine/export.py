@@ -38,6 +38,7 @@ from torch import nn
 
 from ..ops import custom_ops  # noqa: F401  (registers the kernels' ops)
 from ..parallel import mesh
+from ..utils.tracing import sync
 
 __all__ = ["make_serving_fn", "export_inference", "save_artifact",
            "load_artifact", "ServingModel"]
@@ -59,13 +60,20 @@ def make_serving_fn(det, weights=None):
     and return ``fn(images [B,H,W,3] f32 in 0..255, sizes [B,2] i32) ->
     dict`` with boxes [B,N,4] xyxy on the canvas, scores [B,N], classes
     [B,N] int32 and valid [B,N] bool. Inputs may be numpy arrays or tensors
-    on any device; outputs stay on the detector's device."""
+    on any device; outputs stay on the detector's device. Under a profiler
+    each copy to the device, which the host waits for, is a range of its
+    own: ``aldi/sync/image_copy`` and ``aldi/sync/sizes_copy``
+    (``utils/tracing.py``)."""
     if weights is not None:
         det.module.load_state_dict(weights)
 
     def fn(images, sizes):
-        images = torch.as_tensor(images, dtype=torch.float32, device=det.device)
-        sizes = torch.as_tensor(sizes, dtype=torch.int32, device=det.device)
+        with sync("image_copy"):
+            images = torch.as_tensor(images, dtype=torch.float32,
+                                     device=det.device)
+        with sync("sizes_copy"):
+            sizes = torch.as_tensor(sizes, dtype=torch.int32,
+                                    device=det.device)
         return dict(zip(_OUTPUTS, det.forward_inference(images, sizes)))
 
     return fn

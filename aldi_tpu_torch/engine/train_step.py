@@ -75,6 +75,7 @@ from ..parallel import fsdp, mesh, tensor
 from ..parallel.mesh import all_reduce_grads
 from ..solver import build_lr_schedule, build_optimizer, clip_gradients, set_lr
 from ..structures import Instances
+from ..utils.tracing import span
 from .distill import gate_hard_losses
 from .ema import ema_update
 
@@ -341,15 +342,17 @@ def make_train_step(cfg, detector):
 
     def train_step(state: TrainState, batch: dict, draws: dict, mark=None):
         """``mark``, if given, is called with a stage's name as each stage
-        ends (for timing by stage)."""
+        ends (for timing by stage). Under a profiler each stage is the
+        range ``aldi/step/<its name>`` (``utils/tracing.py``)."""
         def done(stage):
             if mark is not None:
                 mark(stage)
 
         metrics = {}
         if s.ema:
-            ema_update(state.teacher, state.student, cfg.EMA.ALPHA,
-                       state.step, cfg.EMA.START_ITER)
+            with span("step/ema update"):
+                ema_update(state.teacher, state.student, cfg.EMA.ALPHA,
+                           state.step, cfg.EMA.START_ITER)
             done("ema update")
         teacher = state.teacher if s.ema else state.student
         student = state.student
@@ -362,12 +365,13 @@ def make_train_step(cfg, detector):
 
         ctx = pseudo = None
         if s.distill:
-            ctx, pseudo, t_metrics = detector.forward_teacher_ctx(
-                teacher, uw["image"], uw["sizes"], draws.get("teacher"),
-                threshold=threshold, max_gt=max_gt)
+            with span("step/teacher (pseudo-labels, distill targets)"):
+                ctx, pseudo, t_metrics = detector.forward_teacher_ctx(
+                    teacher, uw["image"], uw["sizes"], draws.get("teacher"),
+                    threshold=threshold, max_gt=max_gt)
             metrics.update(t_metrics)
             done("teacher (pseudo-labels, distill targets)")
-        with torch.no_grad():
+        with span("step/strong views"), torch.no_grad():
             if s.strong:
                 ls_images = strong_augment(
                     lab["image"], lab["sizes"], draws["aug_labeled"],
@@ -437,39 +441,44 @@ def make_train_step(cfg, detector):
                 n: draws[n][c] for n in active if n in draws}
             at = f" (chunk {c + 1} of {accum})" if accum > 1 else ""
             if cfg.SOLVER.BACKWARD_AT_END or len(active) <= 1:
-                losses = {}
-                for name in active:
-                    losses.update(stream(name, m, d))
-                t_c = total_of(losses)
-                (t_c / accum).backward()
-                done("streams fwd + one bwd" + at)
+                label = "streams fwd + one bwd" + at
+                with span("step/" + label):
+                    losses = {}
+                    for name in active:
+                        losses.update(stream(name, m, d))
+                    t_c = total_of(losses)
+                    (t_c / accum).backward()
+                done(label)
             else:  # one backward per stream: peak memory of one stream
                 losses, t_c = {}, 0.0
                 for name in active:
-                    l_s = stream(name, m, d)
-                    if not l_s:  # DETR's alignment is a pass-through
-                        continue
-                    t_s = total_of(l_s)
-                    (t_s / accum).backward()
-                    t_c = t_c + t_s.detach()
-                    losses.update(l_s)
-                    done(f"{name} stream fwd+bwd" + at)
+                    label = f"{name} stream fwd+bwd" + at
+                    with span("step/" + label):
+                        l_s = stream(name, m, d)
+                        if l_s:  # DETR's alignment is a pass-through
+                            t_s = total_of(l_s)
+                            (t_s / accum).backward()
+                            t_c = t_c + t_s.detach()
+                            losses.update(l_s)
+                    if l_s:  # a pass-through's range has no mark
+                        done(label)
             total = total + t_c.detach() / accum
             for k, v in losses.items():
                 v = v.detach() / accum
                 loss_dict[k] = loss_dict[k] + v if k in loss_dict else v
-        params = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:
-                # a parameter no loss reached (the RPN head under
-                # MODEL.LOAD_PROPOSALS): JAX's zero gradient, which weight
-                # decay and momentum still move
-                p.grad = torch.zeros_like(p)
-        all_reduce_grads(params)
-        clip_gradients(cfg, params)
-        set_lr(opt, state.schedule(state.step))
-        opt.step()
-        state.step += 1
+        with span("step/optimizer"):
+            params = [p for g in opt.param_groups for p in g["params"]]
+            for p in params:
+                if p.grad is None:
+                    # a parameter no loss reached (the RPN head under
+                    # MODEL.LOAD_PROPOSALS): JAX's zero gradient, which
+                    # weight decay and momentum still move
+                    p.grad = torch.zeros_like(p)
+            all_reduce_grads(params)
+            clip_gradients(cfg, params)
+            set_lr(opt, state.schedule(state.step))
+            opt.step()
+            state.step += 1
         done("optimizer")
 
         metrics.update(loss_dict)

@@ -56,6 +56,7 @@ from ..data.loader import DevicePrefetcher, WeakStrongLoader
 from ..models import build_detector
 from ..parallel import mesh
 from ..utils.events import EventStorage, build_writers, setup_logger
+from ..utils.tracing import span, sync
 from .checkpoint import Checkpointer
 from .evaluator import inference_on_dataset
 from .train_step import (create_train_state, draw_step, grad_accum,
@@ -222,7 +223,10 @@ class ALDITrainer:
 
     def _loop(self, batches, start):
         """Iterations start .. MAX_ITER - 1 with their schedule points.
-        Returns (whether the last one evaluated, its results)."""
+        Returns (whether the last one evaluated, its results). In the
+        ``TPU.PROFILE_DIR`` trace each iteration's wait for its batch is the
+        range ``aldi/train/data``, its step ``aldi/train/step`` and the read
+        of its metrics ``aldi/sync/metrics`` (``utils/tracing.py``)."""
         cfg = self.cfg
         max_iter = cfg.SOLVER.MAX_ITER
         profiler = None
@@ -232,7 +236,8 @@ class ALDITrainer:
         win_t0, win_iters = time.time(), 0
         evaluated_now, last_results = False, {}
         for it in range(start, max_iter):
-            batch = next(batches)
+            with span("train/data"):
+                batch = next(batches)
             data_time = time.time() - data_t0
             if cfg.TPU.PROFILE_DIR and mesh.is_main():
                 # trace a 3-iteration window
@@ -243,8 +248,9 @@ class ALDITrainer:
                     profiler = self._stop_profiler(profiler)
 
             t_disp = time.time()
-            self.state, metrics = self.step_fn(self.state, batch,
-                                               self.draws(it, batch))
+            with span("train/step"):
+                self.state, metrics = self.step_fn(self.state, batch,
+                                                   self.draws(it, batch))
             dispatch_time = time.time() - t_disp
             win_iters += 1
 
@@ -254,8 +260,9 @@ class ALDITrainer:
 
             self.storage.iter = it + 1
             if (it + 1) % WRITE_PERIOD == 0 or it == start:
-                host_metrics = {k: float(v) for k, v in
-                                mesh.reduce_metrics(metrics).items()}
+                with sync("metrics"):
+                    host_metrics = {k: float(v) for k, v in
+                                    mesh.reduce_metrics(metrics).items()}
                 elapsed = time.time() - win_t0
                 host_metrics["images_per_sec"] = (
                     cfg.SOLVER.IMS_PER_BATCH * win_iters / max(elapsed, 1e-9)

@@ -33,6 +33,7 @@ from ..config import compute_dtype, resolve_canvas
 from ..ops.anchors import AnchorGenerator
 from ..ops.losses import bce_with_logits
 from ..parallel.mesh import batch_mean, global_batch
+from ..utils.tracing import span
 from .convnext import ConvNeXt
 from .fpn import FPN
 from .layers import DenseConv2d, DenseLinear
@@ -529,21 +530,29 @@ class RCNNDetector:
         """``forward_inference``'s body without its ``inference_mode``, which
         ``torch.export`` cannot trace: the exported serving module
         (``engine/export.py``) runs it under ``no_grad``, without
-        ``precomputed``."""
-        feats = self.backbone(self.preprocess(images), module)
+        ``precomputed``. Under a profiler its stages are the ranges
+        ``aldi/serve/{trunk,rpn,box_head,detections}`` (``utils/tracing.py``):
+        preprocess + backbone + FPN; RPN head + proposals; pooler + box head
+        + predictor; ``fast_rcnn_inference``."""
+        with span("serve/trunk"):
+            feats = self.backbone(self.preprocess(images), module)
         if precomputed is not None:
             pboxes, pvalid = precomputed["boxes"], precomputed["valid"]
         else:
-            logits, deltas = self.rpn_head(feats, module)
-            pboxes, _, pvalid = self.proposals(logits, deltas, image_sizes)
-        cls_logits, box_deltas, _ = self.box_head(feats, pboxes, pvalid,
-                                                  module)
+            with span("serve/rpn"):
+                logits, deltas = self.rpn_head(feats, module)
+                pboxes, _, pvalid = self.proposals(logits, deltas,
+                                                   image_sizes)
+        with span("serve/box_head"):
+            cls_logits, box_deltas, _ = self.box_head(feats, pboxes, pvalid,
+                                                      module)
         r = self.cfg.MODEL.ROI_HEADS
-        return fast_rcnn_inference(
-            pboxes, pvalid, cls_logits, box_deltas, image_sizes,
-            self.num_classes,
-            score_thresh=r.SCORE_THRESH_TEST,
-            nms_thresh=r.NMS_THRESH_TEST,
-            topk_per_image=self.cfg.TEST.DETECTIONS_PER_IMAGE,
-            box_reg_weights=self.box_reg_weights,
-        )
+        with span("serve/detections"):
+            return fast_rcnn_inference(
+                pboxes, pvalid, cls_logits, box_deltas, image_sizes,
+                self.num_classes,
+                score_thresh=r.SCORE_THRESH_TEST,
+                nms_thresh=r.NMS_THRESH_TEST,
+                topk_per_image=self.cfg.TEST.DETECTIONS_PER_IMAGE,
+                box_reg_weights=self.box_reg_weights,
+            )

@@ -9,11 +9,14 @@ t sorted positions are final, so it converges in <= N steps; in practice a
 handful. Every (image, level) pair runs in one batched ``[G, N, N]`` loop,
 and the host checks for convergence only every ``_CHECK_EVERY`` steps:
 steps past the fixed point leave it unchanged. Under ``torch.export`` the
-same steps run as a ``while_loop`` (``_fixed_point_traced``).
+same steps run as a ``while_loop`` (``_fixed_point_traced``). Under a
+profiler the eager loop is the range ``aldi/nms`` and each exit test
+``aldi/sync/nms_exit`` (``utils/tracing.py``).
 """
 
 import torch
 
+from ..utils.tracing import span, sync
 from .boxes import pairwise_iou
 
 _CHECK_EVERY = 8
@@ -82,10 +85,12 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
         keep = _fixed_point_traced(v, supp)
     else:
         keep = v
-        for _ in range(0, n, _CHECK_EVERY):
-            keep, prev = _steps(keep, v, supp)
-            if torch.equal(keep, prev):
-                break
+        with span("nms"):
+            for _ in range(0, n, _CHECK_EVERY):
+                keep, prev = _steps(keep, v, supp)
+                with sync("nms_exit"):
+                    if torch.equal(keep, prev):
+                        break
 
     out = torch.zeros_like(keep).scatter_(1, order, keep)
     return out.reshape(lead + (n,))

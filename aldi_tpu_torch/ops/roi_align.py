@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from ..utils.tracing import sync
 from . import custom_ops
 
 
@@ -42,7 +43,9 @@ def assign_levels(boxes: torch.Tensor, min_level: int, max_level: int,
     boundary and change its whole output."""
     area = ((boxes[..., 2] - boxes[..., 0])
             * (boxes[..., 3] - boxes[..., 1])).clamp(min=0)
-    size = torch.tensor(canonical_size, device=boxes.device)  # true division
+    # a tensor for true division; from host memory, the copy waits
+    with sync("canonical_size_copy"):
+        size = torch.tensor(canonical_size, device=boxes.device)
     lvl = torch.floor(
         canonical_level + torch.log2(torch.sqrt(area) / size + 1e-8))
     return lvl.clamp(min_level, max_level).to(torch.int32) - min_level

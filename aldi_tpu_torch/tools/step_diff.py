@@ -87,7 +87,7 @@ def child(tree, config):
     traced = cs.device_busy(lambda: step(state, batches[1], draws[1]))
     if traced is None:
         raise SystemExit("the trace holds no device events")
-    busy, _, per_kernel, _ = traced
+    busy, _, per_kernel = traced[:3]
     step_ms = []
     for _ in range(cs.TIMED_STEPS):  # host clock, as chip_smoke times steps
         t0 = time.perf_counter()

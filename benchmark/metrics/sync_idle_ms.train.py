@@ -1,0 +1,10 @@
+"""sync_idle_ms.train: device idle ms per step in the gaps that open
+inside an ``aldi/sync/*`` range (the queue ran dry while the host
+waited)."""
+
+from ..spans import SYNC, idle_opening_in, per
+
+
+def read(rec):
+    return per(rec, "steps", lambda t: 1e3 * idle_opening_in(
+        t, lambda n: n.startswith(SYNC)))

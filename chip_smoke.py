@@ -50,13 +50,13 @@ failure exits non-zero:
    warm-up request and then 3 timed requests of 8 synthetic images each,
    through ``build_detector`` and ``make_serving_fn``. The launch counts
    are set to 0 just before the timed requests and read just after. The
-   outputs are checked, one request is timed stage by stage, and one is
-   traced with torch.profiler for the device's busy share and its
+   outputs are checked, and one request is traced with torch.profiler for
+   the device's busy share, the device time of the port's ranges (trunk,
+   RPN, box head, detections, NMS and its exit tests) and its
    layout-conversion kernels (with the operators that launched them); for
-   ConvNeXt-L the request by stage times each trunk stage, and the trunk's
-   residual stream is measured at the end of each stage. K2's forward is
-   held against its plain version on a flagship and a ConvNeXt-L
-   request's real proposals. Then a tiny float32 detector of each family
+   ConvNeXt-L the trunk's residual stream is measured at the end of each
+   stage. K2's forward is held against its plain version on a flagship
+   and a ConvNeXt-L request's real proposals. Then a tiny float32 detector of each family
    on the card is held against the same detector on the CPU (the tiny ViT
    has 64-wide heads, so the attention kernel runs). Then ViTDet-L
    (``configs/cityscapes/ALDI-Best-ViTL-Cityscapes.yaml``: 24 blocks of
@@ -1262,7 +1262,7 @@ def training_phase(card, kernels, config=FLAGSHIP, overrides=None,
         print(f"[train] {name} device busy share: not measured (the profiler "
               "saw no device events)")
     else:
-        busy, top, per_kernel, converters = traced
+        busy, top, per_kernel, converters, _ = traced
         print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
               f"{med:.2f} ms median step, idle share "
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
@@ -1455,74 +1455,6 @@ def tiny_train_reference_check(config=FLAGSHIP, overrides=None):
         fail("tiny DAOD step: card and CPU disagree")
 
 
-def staged_request(det, images, sizes):
-    """One request with a synchronize after each stage: ms per stage."""
-    import torch
-
-    from aldi_tpu_torch.models.roi_heads import box_pooler, fast_rcnn_inference
-    from aldi_tpu_torch.models.vit import SimpleFeaturePyramid
-
-    stages = {}
-    t = time.perf_counter()
-
-    def mark(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] = (now - t) * 1e3
-        t = now
-
-    with torch.inference_mode():
-        x = det.preprocess(images)
-        mark("preprocess")
-        net = det.module.backbone
-        convnext = getattr(getattr(net, "bottom_up", None), "stages", None)
-        if hasattr(net, "net"):  # ViTDet: the trunk, then the pyramid
-            trunk = net.net(x.permute(0, 3, 1, 2))
-            mark("backbone (ViT, 4 x flash_attn_fwd)")
-            feats = [f.permute(0, 2, 3, 1)
-                     for f in SimpleFeaturePyramid.forward(net, trunk)]
-            mark("feature pyramid (SFP)")
-        elif convnext is not None:  # ConvNeXt: a mark after each stage
-            hooks = [stage[-1].register_forward_hook(
-                lambda *_, i=i, n=len(stage): mark(
-                    f"ConvNeXt stage {i} ("
-                    + ("conv + LN" if i == 0 else
-                       f"stage {i - 1}'s output LN, LN + conv")
-                    + f", {n} blocks)"))
-                for i, stage in enumerate(convnext)]
-            try:
-                feats = det.backbone(x)
-            finally:
-                for h in hooks:
-                    h.remove()
-            mark("stage 3's output LN + FPN")
-        else:
-            feats = det.backbone(x)
-            mark("backbone (R50 + FPN)")
-        logits, deltas = det.rpn_head(feats)
-        mark("rpn head")
-        pboxes, _, pvalid = det.proposals(logits, deltas, sizes)
-        mark("proposals (top-k, decode, NMS)")
-        pooled = box_pooler([f.contiguous() for f in feats[:-1]], pboxes,
-                            pvalid, det.roi_strides, det.pooler_resolution)
-        mark("box pooler (roi_align_fwd)")
-        b, s = pooled.shape[:2]
-        heads = det.module.roi_heads
-        x = heads["box_head"](pooled.reshape((b * s,) + pooled.shape[2:]))
-        cls, reg = heads["box_predictor"](x)
-        mark("box head")
-        r = det.cfg.MODEL.ROI_HEADS
-        fast_rcnn_inference(
-            pboxes, pvalid, cls.reshape(b, s, -1), reg.reshape(b, s, -1),
-            sizes, det.num_classes, score_thresh=r.SCORE_THRESH_TEST,
-            nms_thresh=r.NMS_THRESH_TEST,
-            topk_per_image=det.cfg.TEST.DETECTIONS_PER_IMAGE,
-            box_reg_weights=det.box_reg_weights)
-        mark("fast r-cnn inference (decode, NMS)")
-    return stages
-
-
 CONVERSIONS = ("nchwToNhwcKernel", "nhwcToNchwKernel")
 
 
@@ -1546,8 +1478,11 @@ def device_busy(fn):
     Returns the device's busy time in ms (the union of its kernel and copy
     intervals), the six kernels with the most time (name, ms, calls),
     {name: (ms, calls)} of every kernel and {operator and its first input
-    shapes: count} of the layout-conversion kernels' launching operators;
-    or None when the trace holds no device events."""
+    shapes: count} of the layout-conversion kernels' launching operators
+    and {name: (device ms, count)} of the port's ``aldi/`` profiler ranges
+    (``aldi_tpu_torch/utils/tracing.py``: the device time of the kernels
+    launched inside each); or None when the trace holds no device
+    events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1578,8 +1513,13 @@ def device_busy(fn):
             if any(kind in k.name for kind in CONVERSIONS):
                 op = f"{e.name} {e.input_shapes[:2]}"
                 converters[op] = converters.get(op, 0) + 1
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("aldi/"):
+            ms, n = ranges.get(e.name, (0.0, 0))
+            ranges[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     return (busy_us / 1e3, [(k, ms, n) for k, (ms, n) in top], per_kernel,
-            converters)
+            converters, ranges)
 
 
 def serving_phase(card, config, kernels, numbers=None):
@@ -1653,20 +1593,24 @@ def serving_phase(card, config, kernels, numbers=None):
             "serving request, real proposals", feats, pboxes, levels)
         del feats
 
-    stages = staged_request(det, images, sizes)
-    print(f"[serving] {name}, one request by stage (ms, synchronized): "
-          + "; ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
     traced = device_busy(lambda: fn(images, sizes))
     if traced is None:
         print(f"[serving] {name} device busy share: not measured (the "
               "profiler saw no device events)")
     else:
-        busy, top, per_kernel, converters = traced
+        busy, top, per_kernel, converters, ranges = traced
         print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
               f"of the {median:.2f} ms median request, idle share "
               f"{max(0.0, 1 - busy / median):.3f}; top kernels: "
               + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top),
               flush=True)
+        staged = sum(ms for k, (ms, _) in ranges.items()
+                     if k.startswith("aldi/serve/"))
+        print(f"[serving] {name}, traced request by range (device ms, "
+              f"count): " + "; ".join(f"{k} {ms:.2f} x{n}" for k, (ms, n)
+                                      in sorted(ranges.items()))
+              + f"; the four stages {100 * staged / busy:.1f}% of the busy "
+              "time", flush=True)
         print(f"[serving] {name}, traced request: "
               + layout_conversions(per_kernel, converters), flush=True)
     del det, fn, requests, out
@@ -1882,7 +1826,7 @@ def artifact_phase(card, config, kernels, per_request):
             print(f"[artifact] {name}, traced {label} request: device busy "
                   "not measured (the profiler saw no device events)")
             continue
-        busy, _, per_kernel, _ = traced
+        busy, _, per_kernel, _, _ = traced
         print(f"[artifact] {name}, traced {label} request: device busy "
               f"{busy:.2f} ms of the {ms:.2f} ms median, idle share "
               f"{max(0.0, 1 - busy / ms):.3f}, "
@@ -3017,7 +2961,7 @@ def fast_rcnn_serving_phase(card, kernels):
     del feats
     traced = device_busy(lambda: fn(images, sizes, pre))
     if traced is not None:
-        busy, top, _, _ = traced
+        busy, top, _, _, _ = traced
         print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
               f"of the {med:.2f} ms median request, idle share "
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
@@ -4192,7 +4136,7 @@ def yolo_serving_phase(card, kernels):
         print(f"[serving] {name} device busy share: not measured (the "
               "profiler saw no device events)")
     else:
-        busy, top, per_kernel, converters = traced
+        busy, top, per_kernel, converters, _ = traced
         print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
               f"of the {med:.2f} ms median request, idle share "
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
@@ -4383,7 +4327,7 @@ def yolo_training_phase(card, kernels, overrides=None, n=TRAIN_IMAGES,
         print(f"[train] {name} device busy share: not measured (the profiler "
               "saw no device events)")
     else:
-        busy, top, per_kernel, converters = traced
+        busy, top, per_kernel, converters, _ = traced
         print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
               f"{med:.2f} ms median step, idle share "
               f"{max(0.0, 1 - busy / med):.3f}; top kernels: "
@@ -4807,7 +4751,7 @@ def detr_serving_phase(card, kernels):
         print(f"[serving] {name} device busy share: not measured (the "
               "profiler saw no device events)")
     else:
-        busy, top, per_kernel, _ = traced
+        busy, top, per_kernel, _, _ = traced
         ms, share = msda_share(per_kernel, busy)
         print(f"[serving] {name}, traced request: device busy {busy:.2f} ms "
               f"of the {med:.2f} ms median request, idle share "
@@ -5027,7 +4971,7 @@ def detr_training_phase(card, kernels, overrides=None, n=TRAIN_IMAGES,
         print(f"[train] {name} device busy share: not measured (the profiler "
               "saw no device events)")
     else:
-        busy, top, per_kernel, _ = traced
+        busy, top, per_kernel, _, _ = traced
         ms, share = msda_share(per_kernel, busy)
         k4 = sum(v for k, (v, _) in per_kernel.items() if "lapjv" in k)
         print(f"[train] {name}, traced step: device busy {busy:.2f} ms of the "
