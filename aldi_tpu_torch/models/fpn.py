@@ -4,7 +4,8 @@ Port of ``aldi_tpu/models/fpn.py``: 1x1 lateral convs, nearest 2x top-down
 upsampling with sum fusion, 3x3 output convs, and p6 = max_pool(1, stride 2)
 of p5. Like detectron2's FPN backbone it wraps the bottom-up net, so its
 names are ``backbone.bottom_up.*``, ``backbone.fpn_lateral{i}`` and
-``backbone.fpn_output{i}``.
+``backbone.fpn_output{i}``. Each conv's bias, and a lateral's top-down add,
+run in the epilogue kernel where it takes them (``Conv2d.forward_fused``).
 """
 
 import torch
@@ -41,12 +42,13 @@ class FPN(nn.Module):
                      else self.bottom_up(x, drop))
         feats = [bottom_up[f] for f in self.in_features]
         n = len(feats)
-        merged = getattr(self, f"fpn_lateral{n + 1}")(feats[-1])
-        outs = [getattr(self, f"fpn_output{n + 1}")(merged)]
+        merged = getattr(self, f"fpn_lateral{n + 1}").forward_fused(
+            feats[-1])
+        outs = [getattr(self, f"fpn_output{n + 1}").forward_fused(merged)]
         for i in range(n - 2, -1, -1):
-            lateral = getattr(self, f"fpn_lateral{i + 2}")(feats[i])
-            merged = lateral + F.interpolate(merged, scale_factor=2,
-                                             mode="nearest")
-            outs.insert(0, getattr(self, f"fpn_output{i + 2}")(merged))
+            merged = getattr(self, f"fpn_lateral{i + 2}").forward_fused(
+                feats[i], coarse=merged)
+            outs.insert(0, getattr(self, f"fpn_output{i + 2}").forward_fused(
+                merged))
         outs.append(F.max_pool2d(outs[-1], kernel_size=1, stride=2))
         return outs

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_epilogue import conv_epilogue, takes
+
 
 def _init_weight(weight, fan_in, std, gen):
     """``std=None``: variance_scaling(1, fan_in, uniform) (the c2 xavier of
@@ -37,6 +39,25 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
                         self.padding, self.dilation, self.groups)
+
+    def forward_fused(self, x, relu=False, coarse=None):
+        """``forward``, plus the nearest 2x upsampling of ``coarse`` (the
+        FPN's top-down add) and a ReLU where asked. Where the epilogue
+        kernel takes the input and ``coarse`` (``conv_epilogue.takes``) the
+        conv runs without its bias and the rest in one pass of the kernel;
+        elsewhere, as separate ops."""
+        dt = self.compute_dtype
+        x = x.to(dt)
+        extra = () if coarse is None else (coarse,)
+        if self.bias is None or not takes(x, *extra):
+            out = self.forward(x)
+            if coarse is not None:
+                out = out + F.interpolate(coarse, scale_factor=2,
+                                          mode="nearest")
+            return F.relu(out) if relu else out
+        y = F.conv2d(x, self.weight.to(dt), None, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return conv_epilogue(y, self.bias, coarse=coarse, relu=relu)
 
     def init_weights(self, gen):
         fan_in = self.weight[0].numel()

@@ -11,6 +11,13 @@ them. A reference ``.pth`` maps onto either state dict by name. FrozenBN
 statistics are buffers. Every conv folds its FrozenBN affine into the
 kernel in float32 and then casts, as ``aldi_tpu/models/resnet.py:93-101,
 140-148`` does: conv(x, W)*s + b == conv(x, W*s) + b.
+
+On a CUDA input of float32 or bfloat16 (``conv_epilogue.takes``) each
+conv runs without its shift, and the shift, the ReLU and a bottleneck's
+residual add run in one pass of the epilogue kernel
+(``ops/conv_epilogue.py``): a projection shortcut's conv also runs without
+its shift, its output is the residual and the two shifts are summed in
+float32. Every other input, the CPU's above all, runs the ops as before.
 """
 
 import math
@@ -18,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv_epilogue import conv_epilogue, takes
 
 BLOCKS_PER_STAGE = {26: [1, 1, 1, 1], 50: [3, 4, 6, 3], 101: [3, 4, 23, 3]}
 
@@ -36,13 +45,52 @@ class FrozenBN(nn.Module):
         return scale, self.bias - self.running_mean * scale
 
 
+def _folded(weight, norm, dtype):
+    """The kernel with the FrozenBN scale folded in, in ``dtype``, and the
+    float32 shift."""
+    scale, shift = norm.scale_shift()
+    return (weight.float() * scale[:, None, None, None]).to(dtype), shift
+
+
 def conv_frozen_bn(x, weight, norm, stride, padding, dilation, dtype):
     """conv(x, weight) followed by the FrozenBN ``norm``, folded into one
     conv in ``dtype``."""
-    scale, shift = norm.scale_shift()
-    w = (weight.float() * scale[:, None, None, None]).to(dtype)
+    w, shift = _folded(weight, norm, dtype)
     return F.conv2d(x.to(dtype), w, shift.to(dtype), stride, padding,
                     dilation)
+
+
+def conv_frozen_bn_parts(x, weight, norm, stride, padding, dilation, dtype):
+    """``conv_frozen_bn`` without its shift, and the float32 shift: the
+    conv and the bias ``conv_epilogue`` adds."""
+    w, shift = _folded(weight, norm, dtype)
+    return F.conv2d(x.to(dtype), w, None, stride, padding, dilation), shift
+
+
+def conv_frozen_bn_relu(x, weight, norm, stride, padding, dilation, dtype):
+    """relu(conv_frozen_bn(...)); the shift and the ReLU in one pass of the
+    epilogue kernel where it takes x."""
+    x = x.to(dtype)
+    if not takes(x):
+        return F.relu(conv_frozen_bn(x, weight, norm, stride, padding,
+                                     dilation, dtype))
+    y, shift = conv_frozen_bn_parts(x, weight, norm, stride, padding,
+                                    dilation, dtype)
+    return conv_epilogue(y, shift, relu=True)
+
+
+def bottleneck_out(out, x, conv3, shortcut, dtype):
+    """A bottleneck's end in one pass of the epilogue kernel: relu(conv3(out)
+    + shortcut(x)), or + x without a shortcut. ``conv3`` and ``shortcut``
+    are 1x1 convs given as (kernel, FrozenBN, stride); the shortcut conv
+    runs without its shift, which joins conv3's in the bias."""
+    w3, n3, s3 = conv3
+    y, shift = conv_frozen_bn_parts(out, w3, n3, s3, 0, 1, dtype)
+    if shortcut is None:
+        return conv_epilogue(y, shift, residual=x, relu=True)
+    w, n, s = shortcut
+    sc, sc_shift = conv_frozen_bn_parts(x, w, n, s, 0, 1, dtype)
+    return conv_epilogue(y, shift + sc_shift, residual=sc, relu=True)
 
 
 def _init_conv_kernel(weight, gen):
@@ -69,6 +117,10 @@ class ConvFrozenBN(nn.Module):
         return conv_frozen_bn(x, self.weight, self.norm, self.stride,
                               self.padding, 1, self.compute_dtype)
 
+    def forward_relu(self, x):
+        return conv_frozen_bn_relu(x, self.weight, self.norm, self.stride,
+                                   self.padding, 1, self.compute_dtype)
+
     def init_weights(self, gen):
         _init_conv_kernel(self.weight, gen)
 
@@ -88,6 +140,13 @@ class Bottleneck(nn.Module):
                          if has_shortcut else None)
 
     def forward(self, x):
+        dt = self.conv3.compute_dtype
+        if x.dtype == dt and takes(x):
+            out = self.conv2.forward_relu(self.conv1.forward_relu(x))
+            sc = self.shortcut
+            return bottleneck_out(
+                out, x, (self.conv3.weight, self.conv3.norm, 1),
+                None if sc is None else (sc.weight, sc.norm, sc.stride), dt)
         out = F.relu(self.conv1(x))
         out = F.relu(self.conv2(out))
         out = self.conv3(out)
@@ -103,7 +162,7 @@ class BasicStem(nn.Module):
         self.conv1 = ConvFrozenBN(3, 64, 7, 2, compute_dtype)
 
     def forward(self, x):
-        return F.max_pool2d(F.relu(self.conv1(x)), 3, 2, padding=1)
+        return F.max_pool2d(self.conv1.forward_relu(x), 3, 2, padding=1)
 
 
 class ResNet(nn.Module):
@@ -189,6 +248,17 @@ class TorchvisionBottleneck(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if x.dtype == dt and takes(x):
+            out = conv_frozen_bn_relu(x, self.conv1.weight, self.bn1, 1, 0, 1,
+                                      dt)
+            out = conv_frozen_bn_relu(out, self.conv2.weight, self.bn2,
+                                      self.stride, self.dilation,
+                                      self.dilation, dt)
+            ds = self.downsample
+            return bottleneck_out(
+                out, x, (self.conv3.weight, self.bn3, 1),
+                None if ds is None else (ds[0].weight, ds[1], self.stride),
+                dt)
         out = F.relu(conv_frozen_bn(x, self.conv1.weight, self.bn1, 1, 0, 1,
                                     dt))
         out = F.relu(conv_frozen_bn(out, self.conv2.weight, self.bn2,
@@ -234,8 +304,8 @@ class TorchvisionResNet(nn.Module):
             getattr(self, f"layer{i}").requires_grad_(False)
 
     def forward(self, x):
-        out = F.relu(conv_frozen_bn(x, self.conv1.weight, self.bn1, 2, 3, 1,
-                                    self.compute_dtype))
+        out = conv_frozen_bn_relu(x, self.conv1.weight, self.bn1, 2, 3, 1,
+                                  self.compute_dtype)
         out = F.max_pool2d(out, 3, 2, padding=1)
         if self.freeze_at >= 1:
             out = out.detach()

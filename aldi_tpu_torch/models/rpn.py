@@ -31,8 +31,9 @@ class StandardRPNHead(nn.Module):
     across levels (``aldi_tpu/models/rpn.py:27-61``). ``conv_dims`` is
     MODEL.RPN.CONV_DIMS (-1 = the input channels): one conv is named
     ``conv``, several ``conv0``, ``conv1``, ..., each followed by ReLU (the
-    ViTDet configs use two). Takes NCHW levels; returns per level
-    ([B, HWA], [B, HWA, 4])."""
+    ViTDet configs use two). Each conv's bias, and the ReLU, run in the
+    epilogue kernel where it takes them (``Conv2d.forward_fused``). Takes
+    NCHW levels; returns per level ([B, HWA], [B, HWA, 4])."""
 
     def __init__(self, in_channels, num_anchors, conv_dims=(-1,),
                  compute_dtype=torch.float32):
@@ -54,13 +55,13 @@ class StandardRPNHead(nn.Module):
         for f in features:
             t = f
             for name in self.conv_names:
-                t = F.relu(getattr(self, name)(t))
+                t = getattr(self, name).forward_fused(t, relu=True)
             b = f.shape[0]
             # channel a*4+k of anchor_deltas is coordinate k of anchor a
-            logits.append(self.objectness_logits(t).permute(0, 2, 3, 1)
-                          .reshape(b, -1))
-            deltas.append(self.anchor_deltas(t).permute(0, 2, 3, 1)
-                          .reshape(b, -1, 4))
+            logits.append(self.objectness_logits.forward_fused(t)
+                          .permute(0, 2, 3, 1).reshape(b, -1))
+            deltas.append(self.anchor_deltas.forward_fused(t)
+                          .permute(0, 2, 3, 1).reshape(b, -1, 4))
         return logits, deltas
 
 

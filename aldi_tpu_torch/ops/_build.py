@@ -141,7 +141,9 @@ class Kernel:
     (``csrc/<library>.cu``) and the argument types of its C entry point
     ``aldi_<name>``; ``launch`` builds and loads the library on first use,
     calls the entry point (which returns a CUDA error code), raises on an
-    error and counts the launch in ``launches``. Nothing else counts."""
+    error and counts the launch in ``launches``. Nothing else counts. The
+    entry point is looked up and typed once per loaded library, not on
+    every launch."""
 
     name: str
     library: str
@@ -149,14 +151,18 @@ class Kernel:
 
     def __init__(self):
         self.launches = 0
+        self._entry = (None, None)  # (library, its typed entry point)
 
     def lib(self) -> ctypes.CDLL:
         return load(self.library)
 
     def launch(self, *args) -> None:
         lib = self.lib()
-        fn = getattr(lib, f"aldi_{self.name}")
-        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        held, fn = self._entry
+        if held is not lib:
+            fn = getattr(lib, f"aldi_{self.name}")
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._entry = (lib, fn)
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(

@@ -1,4 +1,4 @@
-"""The port's seven kernels as ``torch.library`` custom ops, namespace
+"""The port's kernels as ``torch.library`` custom ops, namespace
 ``aldi_tpu_torch``.
 
 Each op has two implementations, chosen by PyTorch's dispatcher from the
@@ -27,6 +27,16 @@ the rel-pos attention's forward get their backward through
   ``csrc/flash_attn_bwd.cu``
 - ``lapjv`` (K4, the DETR criterion's assignment solver; no gradient):
   ``lapjv.lapjv_plain`` / ``csrc/lapjv.cu``
+- ``conv_epilogue`` (a conv's bias, residual or top-down add and ReLU, in
+  place on the conv's output; a port-only kernel):
+  ``conv_epilogue.conv_epilogue_plain`` / ``csrc/conv_epilogue.cu``
+- ``conv_epilogue_bwd``: ``conv_epilogue.conv_epilogue_plain_backward`` /
+  ``csrc/conv_epilogue.cu``
+
+The two epilogue ops are defined on a ``torch.library.Library`` with their
+schemas rather than through ``custom_op``, whose Python wrapper costs
+tens of microseconds a call on the host: an R50-FPN request calls the
+forward 72 times. Its gradient is ``conv_epilogue.ConvEpilogueFunction``.
 
 ``roi_align_bwd`` takes the level shapes flattened (``[H_0, W_0, H_1,
 ...]``). Importing this module registers the ops; the kernels are built at
@@ -38,8 +48,9 @@ from typing import List, Tuple
 import torch
 from torch import Tensor
 
-from . import flash_attn, flash_attn_kernel, lapjv_kernel, match_kernel
-from . import roi_align, roi_align_kernel
+from . import conv_epilogue as epilogue
+from . import conv_epilogue_kernel, flash_attn, flash_attn_kernel
+from . import lapjv_kernel, match_kernel, roi_align, roi_align_kernel
 from .lapjv import lapjv_plain
 
 _NS = "aldi_tpu_torch"
@@ -249,3 +260,50 @@ def _(cost, n_rows):
 def _(cost, n_rows):
     return (cost.new_empty(cost.shape[:2], dtype=torch.int32),
             cost.new_empty(cost.shape[:1], dtype=torch.int32))
+
+
+# --------------------------------------- conv epilogue (port-only kernel)
+_LIB = torch.library.Library(_NS, "FRAGMENT")
+_LIB.define("conv_epilogue(Tensor(a!) y, Tensor bias, Tensor? residual, "
+            "Tensor? coarse, bool relu) -> ()")
+_LIB.define("conv_epilogue_bwd(Tensor grad, Tensor? out, bool bias_grad, "
+            "bool coarse_grad) -> (Tensor, Tensor, Tensor)")
+
+
+def _conv_epilogue_cpu(y, bias, residual, coarse, relu):
+    y.copy_(epilogue.conv_epilogue_plain(y, bias, residual, coarse, relu))
+
+
+def _conv_epilogue_bwd_cpu(grad, out, bias_grad, coarse_grad):
+    return epilogue.conv_epilogue_plain_backward(grad, out, bias_grad,
+                                                 coarse_grad)
+
+
+_LIB.impl("conv_epilogue", _conv_epilogue_cpu, "CPU")
+_LIB.impl("conv_epilogue", conv_epilogue_kernel.conv_epilogue, "CUDA")
+_LIB.impl("conv_epilogue_bwd", _conv_epilogue_bwd_cpu, "CPU")
+_LIB.impl("conv_epilogue_bwd", conv_epilogue_kernel.conv_epilogue_bwd,
+          "CUDA")
+
+
+@torch.library.register_fake(f"{_NS}::conv_epilogue", lib=_LIB)
+def _(y, bias, residual, coarse, relu):
+    return None
+
+
+@torch.library.register_fake(f"{_NS}::conv_epilogue_bwd", lib=_LIB)
+def _(grad, out, bias_grad, coarse_grad):
+    n, c, h, w = grad.shape
+    cl = torch.channels_last
+    return (grad.new_empty(0) if out is None else torch.empty_like(grad),
+            grad.new_empty(c if bias_grad else 0, dtype=torch.float32),
+            grad.new_empty((n, c, h // 2, w // 2)).contiguous(
+                memory_format=cl) if coarse_grad else grad.new_empty(0))
+
+
+# in place on y [N, C, H, W]: y + bias [C] float32 (+ residual, y's shape)
+# (+ the nearest-2x upsampling of coarse [N, C, H/2, W/2]), ReLU if relu
+conv_epilogue = torch.ops.aldi_tpu_torch.conv_epilogue.default
+# (grad zeroed where out <= 0, or empty without out; the float32 bias
+# gradient, or empty; the coarse map's gradient, or empty)
+conv_epilogue_bwd = torch.ops.aldi_tpu_torch.conv_epilogue_bwd.default

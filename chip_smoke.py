@@ -40,7 +40,12 @@ failure exits non-zero:
    and in bfloat16 at one training-step launch (4 images' heads, G = 48),
    and at ViTDet-L's (16 heads: G = 16 and G = 64), with their achieved
    rate, their share of the bound and PyTorch's
-   ``scaled_dot_product_attention`` timed beside them.
+   ``scaled_dot_product_attention`` timed beside them; the conv epilogue
+   in float32 and bfloat16, its forward in place at a request's res2,
+   res4, FPN and RPN shapes (equal to the float32 arithmetic rounded once,
+   with the separate PyTorch ops it replaces timed beside it) and its
+   backward at a training stream's res3, FPN and RPN shapes (the ReLU mask
+   exactly, the float32 sums within 1e-5), with its host time a launch.
 3. Serving phase, for the flagship detector (Faster R-CNN R50-FPN,
    ``configs/cityscapes/ALDI-Best-Cityscapes.yaml``), for ViTDet-B
    (``configs/cityscapes/ALDI-Best-ViT-Cityscapes.yaml``) and for
@@ -49,7 +54,9 @@ failure exits non-zero:
    classes, canvas 1024x2048, bfloat16 and seeded random weights: one
    warm-up request and then 3 timed requests of 8 synthetic images each,
    through ``build_detector`` and ``make_serving_fn``. The launch counts
-   are set to 0 just before the timed requests and read just after. The
+   are set to 0 just before the timed requests and read just after (the
+   conv epilogue 72 times a request for R50-FPN, 20 for ViTDet-B, 23 for
+   ConvNeXt-L). The
    outputs are checked, and one request is traced with torch.profiler for
    the device's busy share, the device time of the port's ranges (trunk,
    RPN, box head, detections, NMS and its exit tests) and its
@@ -98,7 +105,9 @@ failure exits non-zero:
    trainable parameters moved, frozen ones (stem and res2) did not, the
    teacher differs from the student after step 2, every kernel of the
    path launched as often per step as the streams need (K1a/K1b 3, K2
-   forward 4 and backward 2; with alignment 5 and 3), and no call
+   forward 4 and backward 2; with alignment 5 and 3; the conv epilogue's
+   forward and backward 216 and 124 for R50-FPN, 288 and 171 with
+   alignment, 60 and 40 for ViTDet-B, 69 and 46 for ConvNeXt-L), and no call
    of the box head in the warm-up step had to copy a pyramid level that
    was not contiguous (NHWC) before K2. Then one step by stage, one traced
    step (with its layout-conversion kernels counted), and K2's forward and
@@ -873,6 +882,218 @@ def check_attn(name, dtype, h_grid, w_grid, g, seed, kernel_iters=0,
     return numbers
 
 
+# the conv epilogue's forward at a request's shapes (8 images at
+# 1024 x 2048) and its backward at a stream's of the 24 + 24 step: (case,
+# form or (ReLU mask, bias gradient, coarse gradient), [N, C, H, W])
+EPILOGUE_FWD = [
+    ("res2 conv3 (bias + residual + ReLU)", "residual_relu",
+     (BATCH, 256, 256, 512)),
+    ("res2 conv1/conv2 (bias + ReLU)", "bias_relu", (BATCH, 64, 256, 512)),
+    ("res4 conv3 (bias + residual + ReLU)", "residual_relu",
+     (BATCH, 1024, 64, 128)),
+    ("FPN p2 lateral (bias + top-down add)", "top_down",
+     (BATCH, 256, 256, 512)),
+    ("FPN p2 output (bias)", "bias", (BATCH, 256, 256, 512)),
+    ("RPN p2 conv (bias + ReLU)", "bias_relu", (BATCH, 256, 256, 512)),
+]
+EPILOGUE_BWD = [
+    ("res3 conv3 backward (ReLU mask)", (True, False, False),
+     (24, 512, 128, 256)),
+    ("FPN p3 lateral backward (bias + 2x2 sums)", (False, True, True),
+     (24, 256, 128, 256)),
+    ("RPN p3 conv backward (mask + bias)", (True, True, False),
+     (24, 256, 128, 256)),
+]
+
+
+def epilogue_nhwc(gen, shape, dtype):
+    """A [N, C, H, W] tensor of normal noise in ``channels_last`` memory."""
+    import torch
+
+    n, c, h, w = shape
+    return torch.randn((n, h, w, c), generator=gen, device="cuda").to(
+        dtype).permute(0, 3, 1, 2)
+
+
+def check_epilogue(name, form, shape, dtype, seed, iters=20):
+    """The epilogue's forward through its op, in place, against its plain
+    version: equal to the float32 arithmetic rounded once (in float32, the
+    plain op sequence itself). In bfloat16 the plain sequence rounds the
+    bias and each sum, up to three roundings of 2^-8 of the operands'
+    magnitude, and the kernel rounds once: the two within 2^-6 of it. Then
+    the kernel and the separate ops it replaces timed with CUDA events,
+    against the bytes it must move over HBM3's rate. Returns the numbers;
+    fails the run on disagreement."""
+    import torch
+    import torch.nn.functional as F
+
+    from aldi_tpu_torch.ops import custom_ops
+    from aldi_tpu_torch.ops.conv_epilogue import conv_epilogue_plain
+    from aldi_tpu_torch.ops.conv_epilogue_kernel import conv_epilogue
+
+    n, c, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    y = epilogue_nhwc(gen, shape, dtype)
+    bias = torch.randn(c, generator=gen, device="cuda")
+    res = (epilogue_nhwc(gen, shape, dtype) if form == "residual_relu"
+           else None)
+    coarse = (epilogue_nhwc(gen, (n, c, h // 2, w // 2), dtype)
+              if form == "top_down" else None)
+    relu = form in ("bias_relu", "residual_relu")
+    up = (lambda t: None if t is None else t.float())
+    once = conv_epilogue_plain(y.float(), bias, up(res), up(coarse),
+                               relu).to(dtype)
+    got = y.clone(memory_format=torch.channels_last)
+    before = conv_epilogue.launches
+    custom_ops.conv_epilogue(got, bias, res, coarse, relu)
+    torch.cuda.synchronize()
+    ok = conv_epilogue.launches == before + 1 and torch.equal(got, once)
+    err = (got.float() - once.float()).abs().max().item()
+    del once
+    plain = conv_epilogue_plain(y, bias, res, coarse, relu)
+    mag = y.float().abs() + bias.abs()[:, None, None]
+    if res is not None:
+        mag += res.float().abs()
+    if coarse is not None:
+        mag += F.interpolate(coarse.float().abs(), scale_factor=2,
+                             mode="nearest")
+    plain_tol = 0.0 if dtype == torch.float32 else 2 ** -6
+    plain_err = ((got.float() - plain.float()).abs() / mag.clamp_min(1e-30)
+                 ).max().item()
+    ok = ok and plain_err <= plain_tol
+    del plain, mag
+    ms = cuda_ms(lambda: custom_ops.conv_epilogue(got, bias, res, coarse,
+                                                  relu), iters)
+
+    def separate():  # a bias-free conv's output, then PyTorch's passes
+        out = got.add_(bias.to(dtype)[:, None, None])
+        if res is not None:
+            out = out + res
+        if coarse is not None:
+            out = out + F.interpolate(coarse, scale_factor=2, mode="nearest")
+        return F.relu(out) if relu else out
+
+    separate_ms = cuda_ms(separate, iters)
+    e = got.element_size() * got.numel()
+    n_bytes = (2 * e + (e if res is not None else 0)
+               + (e // 4 if coarse is not None else 0) + 4 * c)
+    bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[kernel] conv epilogue {name} {list(shape)} "
+          f"{str(dtype).split('.')[-1]}: max abs err {err:.3g} against the "
+          f"float32 arithmetic rounded once (tolerance 0); from the plain op "
+          f"sequence {plain_err:.3g} of the operands' magnitude (tolerance "
+          f"{plain_tol:g}): {'ok' if ok else 'FAIL'}; kernel "
+          f"{ms:.4f} ms, separate ops {separate_ms:.4f} ms, bytes bound "
+          f"{bound_ms:.4f} ms, {bound_ms / ms:.3f} of the bound", flush=True)
+    if not ok:
+        fail(f"conv_epilogue disagrees with its plain version ({name}, "
+             f"{dtype})")
+    return dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                max_abs_err=err, plain_err=plain_err, ms=ms,
+                separate_ms=separate_ms,
+                bound_ms=bound_ms)
+
+
+def check_epilogue_bwd(name, grads, shape, dtype, seed, iters=20):
+    """The epilogue's backward through its op against its plain version:
+    the ReLU's mask exactly, the float32 bias sums within 1e-5 of the summed
+    magnitudes, the coarse map's 2x2 sums within 1e-5 of theirs in float32
+    (2^-7 in bfloat16, one rounding of the float32 sum), and two launches
+    bitwise equal. Timed and bounded as ``check_epilogue``."""
+    import torch
+
+    from aldi_tpu_torch.ops import custom_ops
+    from aldi_tpu_torch.ops.conv_epilogue import conv_epilogue_plain_backward
+    from aldi_tpu_torch.ops.conv_epilogue_kernel import conv_epilogue_bwd
+
+    has_out, bias_grad, coarse_grad = grads
+    n, c, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grad = epilogue_nhwc(gen, shape, dtype)
+    out = (torch.relu(epilogue_nhwc(gen, shape, dtype)) if has_out
+           else None)
+    before = conv_epilogue_bwd.launches
+    got = custom_ops.conv_epilogue_bwd(grad, out, bias_grad, coarse_grad)
+    again = custom_ops.conv_epilogue_bwd(grad, out, bias_grad, coarse_grad)
+    want = conv_epilogue_plain_backward(grad, out, bias_grad, coarse_grad)
+    torch.cuda.synchronize()
+    ok = (conv_epilogue_bwd.launches == before + 2
+          and all(torch.equal(a, b) for a, b in zip(got, again)))
+    del again
+    masked = grad if out is None else want[0]
+    errs = {}
+    if has_out:
+        errs["masked"] = (got[0].float() - want[0].float()).abs().max().item()
+        ok = ok and torch.equal(got[0], want[0])
+    if bias_grad:
+        scale = masked.float().abs().sum((0, 2, 3))
+        diff = (got[1] - want[1]).abs()
+        errs["bias"] = (diff / scale.clamp_min(1e-30)).max().item()
+        ok = ok and bool((diff <= 1e-5 * scale + 1e-6).all())
+    if coarse_grad:
+        scale = masked.float().abs().reshape(n, c, h // 2, 2, w // 2, 2).sum(
+            (3, 5))
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+        diff = (got[2].float() - want[2].float()).abs()
+        errs["coarse"] = diff.max().item()
+        ok = ok and bool((diff <= tol * scale).all())
+    del got, want, masked
+    ms = cuda_ms(lambda: custom_ops.conv_epilogue_bwd(
+        grad, out, bias_grad, coarse_grad), iters)
+    e = grad.element_size() * grad.numel()
+    n_bytes = (e + (2 * e if has_out else 0) + (e // 4 if coarse_grad else 0)
+               + (4 * c if bias_grad else 0))
+    bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[kernel] conv epilogue {name} {list(shape)} "
+          f"{str(dtype).split('.')[-1]}: errors "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (mask exact, float32 sums 1e-5 relative): "
+          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, bytes bound "
+          f"{bound_ms:.4f} ms, {bound_ms / ms:.3f} of the bound", flush=True)
+    if not ok:
+        fail(f"conv_epilogue_bwd disagrees with its plain version ({name}, "
+             f"{dtype})")
+    return dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                errors=errs, ms=ms, bound_ms=bound_ms)
+
+
+def epilogue_host_us(number=2000, repeat=7):
+    """Host microseconds of one epilogue launch made as the models make it
+    (``ops/conv_epilogue.conv_epilogue``, the dispatcher included), by
+    ``timeit`` on a tiny tensor so that the host paces the loop: in
+    inference, with a residual, and in a training forward (the autograd
+    function, less the multiply that makes its non-leaf input)."""
+    import timeit
+
+    import torch
+
+    from aldi_tpu_torch.ops import conv_epilogue as ep
+
+    def us(fn, n=number):
+        fn()
+        torch.cuda.synchronize()
+        best = min(timeit.repeat(fn, number=n, repeat=repeat))
+        torch.cuda.synchronize()
+        return best / n * 1e6
+
+    y = torch.zeros((1, 64, 2, 2), device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    b = torch.zeros(64, device="cuda")
+    r = torch.zeros_like(y)
+    yg = y.clone().requires_grad_()
+    bg = b.clone().requires_grad_()
+    feed = us(lambda: yg * 1.0, 500)
+    host = {"inference": us(lambda: ep.conv_epilogue(y, b, relu=True)),
+            "inference, residual": us(
+                lambda: ep.conv_epilogue(y, b, r, relu=True)),
+            "training forward": us(
+                lambda: ep.conv_epilogue(yg * 1.0, bg, relu=True), 500)
+            - feed}
+    print("[kernel] conv epilogue host time a launch: " + "; ".join(
+        f"{k} {v:.2f} us" for k, v in host.items()), flush=True)
+    return host
+
+
 def synthetic_request(gen, canvas):
     """One request: BATCH images of uniform noise in 0..255 on the card and
     their valid sizes (most full-canvas, two smaller)."""
@@ -1522,12 +1743,13 @@ def device_busy(fn):
             converters, ranges)
 
 
-def serving_phase(card, config, kernels, numbers=None):
+def serving_phase(card, config, kernels, numbers=None, per_request=None):
     """One detector of ``config`` through ``build_detector`` and
     ``make_serving_fn`` at full width (see the module docstring). With
     ``numbers``, K2's forward is held against its plain version on the last
-    request's real proposals and its numbers stored there. Returns the
-    launch counts of the timed requests."""
+    request's real proposals and its numbers stored there. ``per_request``:
+    {kernel name: launches per request} that the timed requests must show.
+    Returns the launch counts of the timed requests."""
     import torch
 
     from aldi_tpu_torch.config import get_cfg
@@ -1569,6 +1791,10 @@ def serving_phase(card, config, kernels, numbers=None):
     for kname, n in launches.items():
         if n == 0:
             fail(f"the {name} serving path never launched {kname}")
+    for kname, n in (per_request or {}).items():
+        if launches[kname] != n * TIMED_REQUESTS:
+            fail(f"{name}: {launches[kname]} launches of {kname} in "
+                 f"{TIMED_REQUESTS} requests, {n} per request expected")
     if n_det == 0:
         fail(f"{name}: no valid detections in any request")
     lat = sorted(latencies)
@@ -5192,6 +5418,8 @@ def main():
     from aldi_tpu_torch.config import get_cfg
     from aldi_tpu_torch.models import build_detector
     from aldi_tpu_torch.ops import _build
+    from aldi_tpu_torch.ops.conv_epilogue_kernel import (conv_epilogue,
+                                                         conv_epilogue_bwd)
     from aldi_tpu_torch.ops.flash_attn_kernel import (flash_attn_bwd,
                                                       flash_attn_fwd)
     from aldi_tpu_torch.ops.lapjv_kernel import lapjv
@@ -5211,7 +5439,8 @@ def main():
 
     # -- 1. build every kernel from the checkout's sources
     t0 = time.perf_counter()
-    libraries = sorted({k.library for k in all_kernels})
+    libraries = sorted({k.library for k in all_kernels}
+                       | {conv_epilogue.library})
     logs = _build.build(libraries)
     print(f"[build] {len(logs)} of {len(libraries)} kernel libraries "
           f"({', '.join(libraries)}) compiled in "
@@ -5284,15 +5513,37 @@ def main():
     # for shared memory, no rows, signed zeros, the block kernel (m > 512)
     k4_cases = check_lapjv_cases()
     torch.cuda.empty_cache()
+    # the conv epilogue, forward and backward, in float32 and bfloat16 at
+    # the R50-FPN request's and step's shapes, and its host time a launch
+    epilogue_cases = {"forward": {}, "backward": {}}
+    for dtype, seed in ((torch.float32, 31), (torch.bfloat16, 32)):
+        key = str(dtype).split(".")[-1]
+        for case, form, shape in EPILOGUE_FWD:
+            epilogue_cases["forward"][f"{case}, {key}"] = check_epilogue(
+                case, form, shape, dtype, seed)
+            torch.cuda.empty_cache()
+        for case, grads, shape in EPILOGUE_BWD:
+            epilogue_cases["backward"][f"{case}, {key}"] = (
+                check_epilogue_bwd(case, grads, shape, dtype, seed))
+            torch.cuda.empty_cache()
+    epilogue_host = epilogue_host_us()
 
     # -- 3. serving phase: each detector through its entry points (K2 on
-    # ConvNeXt-L's real proposals too, its numbers kept out of the line)
+    # ConvNeXt-L's real proposals too, its numbers kept out of the line).
+    # The conv epilogue per request: R50-FPN's stem, 16 bottlenecks of 3,
+    # 8 FPN convs and the RPN head's 3 on each of 5 levels (72); ViTDet-B's
+    # RPN head, 4 convs on 5 levels (20); ConvNeXt-L's FPN and RPN head (23)
     serving_launches = {
-        "R50-FPN": serving_phase(card, FLAGSHIP, [roi_align_fwd], numbers),
+        "R50-FPN": serving_phase(card, FLAGSHIP,
+                                 [roi_align_fwd, conv_epilogue], numbers,
+                                 {"conv_epilogue": 72}),
         "ViTDet-B": serving_phase(card, VIT_ALDI,
-                                  [roi_align_fwd, flash_attn_fwd]),
-        "ConvNeXt-L": serving_phase(card, CONVNEXT_ALDI, [roi_align_fwd],
-                                    {})}
+                                  [roi_align_fwd, flash_attn_fwd,
+                                   conv_epilogue],
+                                  per_request={"conv_epilogue": 20}),
+        "ConvNeXt-L": serving_phase(card, CONVNEXT_ALDI,
+                                    [roi_align_fwd, conv_epilogue], {},
+                                    {"conv_epilogue": 23})}
     t_new = time.perf_counter()
     serving_launches["ViTDet-L"] = serving_phase(
         card, VITL_ALDI, [roi_align_fwd, flash_attn_fwd])
@@ -5309,12 +5560,17 @@ def main():
     tiny_reference_check(CONVNEXT_ALDI)
 
     # -- 4. artifact phase: each detector exported, saved, loaded, served
+    # the conv epilogue: 49 ResNet-50, 8 FPN and 15 RPN head launches a
+    # request; ViTDet-B's RPN head 20
     artifact_launches = {
-        "R50-FPN": artifact_phase(card, FLAGSHIP, [roi_align_fwd],
-                                  {"roi_align_fwd": 1}),
+        "R50-FPN": artifact_phase(card, FLAGSHIP,
+                                  [roi_align_fwd, conv_epilogue],
+                                  {"roi_align_fwd": 1, "conv_epilogue": 72}),
         "ViTDet-B": artifact_phase(card, VIT_ALDI,
-                                   [roi_align_fwd, flash_attn_fwd],
-                                   {"roi_align_fwd": 1, "flash_attn_fwd": 4})}
+                                   [roi_align_fwd, flash_attn_fwd,
+                                    conv_epilogue],
+                                   {"roi_align_fwd": 1, "flash_attn_fwd": 4,
+                                    "conv_epilogue": 20})}
     tiny_artifact_check()
 
     # -- 5. training phase: each DAOD step through its entry points. Per
@@ -5322,32 +5578,44 @@ def main():
     # distill streams' RPN losses); K2 forward 4 (the teacher's proposals,
     # the strong and distill streams' ROIs, the teacher's head on the
     # distill ROIs) and backward 2; with alignment, the target_weak
-    # stream's box head adds one of each
+    # stream's box head adds one of each. The conv epilogue: forward on
+    # the teacher's and each stream's trunk, FPN and RPN head (3 x 72 for
+    # R50-FPN), backward where a gradient flows: below the frozen stem and
+    # res2, 13 bottlenecks of 3, the FPN and the RPN head (2 x 62); the
+    # target_weak stream adds a forward (72) and a backward without the RPN
+    # head, which no loss of that stream reaches (47)
     per_step = {"match_iou": 3, "low_quality_mask": 3, "roi_align_fwd": 4,
                 "roi_align_bwd": 2}
-    launches, step_kernels, _ = training_phase(card, flagship_kernels,
-                                               per_step=per_step)
+    epilogue_kernels = [conv_epilogue, conv_epilogue_bwd]
+    r50_epilogue = {"conv_epilogue": 216, "conv_epilogue_bwd": 124}
+    launches, step_kernels, _ = training_phase(
+        card, flagship_kernels + epilogue_kernels,
+        per_step={**per_step, **r50_epilogue})
     torch.cuda.empty_cache()
     tiny_train_reference_check()
     vit_launches, vit_step_kernels, _ = training_phase(
-        card, vit_kernels, VIT_ALDI, per_step={
-            **per_step, "flash_attn_fwd": 20, "flash_attn_bwd": 8})
+        card, vit_kernels + epilogue_kernels, VIT_ALDI, per_step={
+            **per_step, "flash_attn_fwd": 20, "flash_attn_bwd": 8,
+            "conv_epilogue": 60, "conv_epilogue_bwd": 40})
     torch.cuda.empty_cache()
     with tiny_vit():
         tiny_train_reference_check(VIT_ALDI)
     convnext_launches, convnext_step_kernels, _ = training_phase(
-        card, flagship_kernels, CONVNEXT_ALDI, per_step=per_step)
+        card, flagship_kernels + epilogue_kernels, CONVNEXT_ALDI,
+        per_step={**per_step, "conv_epilogue": 69, "conv_epilogue_bwd": 46})
     torch.cuda.empty_cache()
     tiny_train_reference_check(CONVNEXT_ALDI)
     align_launches, align_step_kernels, _ = training_phase(
-        card, flagship_kernels, FLAGSHIP, ALIGN, per_step={
-            **per_step, "roi_align_fwd": 5, "roi_align_bwd": 3})
+        card, flagship_kernels + epilogue_kernels, FLAGSHIP, ALIGN,
+        per_step={**per_step, "roi_align_fwd": 5, "roi_align_bwd": 3,
+                  "conv_epilogue": 288, "conv_epilogue_bwd": 171})
     torch.cuda.empty_cache()
     tiny_train_reference_check(FLAGSHIP, ALIGN)
     # the dense RPN loss (TPU.RPN_LOSS_IMPL "dense"): the same launches
     t_new = time.perf_counter()
     dense_launches, dense_step_kernels, _ = training_phase(
-        card, flagship_kernels, FLAGSHIP, DENSE_RPN, per_step=per_step)
+        card, flagship_kernels + epilogue_kernels, FLAGSHIP, DENSE_RPN,
+        per_step={**per_step, **r50_epilogue})
     torch.cuda.empty_cache()
     tiny_train_reference_check(FLAGSHIP, DENSE_RPN)
     print(f"[time] the dense RPN phase took "
@@ -5531,6 +5799,19 @@ def main():
         "synthetic_tied": {key: k4_synthetic[key] for key in keys},
         "cases": {label: {key: r[key] for key in keys}
                   for label, r in k4_cases.items()}})
+    # the conv epilogue: launches from the flagship's timed training steps,
+    # the kernel phase's cases, and its host time a launch
+    for k, direction in ((conv_epilogue, "forward"),
+                         (conv_epilogue_bwd, "backward")):
+        entries.append({
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[k.name],
+            "library_ms": None,
+            "launches_by_path": {path: c[k.name]
+                                 for path, c in by_path.items()
+                                 if k.name in c},
+            "cases": epilogue_cases[direction],
+            **({"host_us": epilogue_host} if k is conv_epilogue else {})})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

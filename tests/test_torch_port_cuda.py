@@ -4,7 +4,15 @@ This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch: there, skip the JAX-loading conftest with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py``.
 
-Tolerances: the rel-pos attention kernels K3a/K3b as ``chip_smoke.check_attn``
+Tolerances: the conv epilogue kernel equal to its plain version in float32
+(the same additions in the same order) and, in bfloat16, to the float32
+arithmetic rounded once, within the plain version's own roundings of it
+(2^-7 of the operands' magnitude); its backward's masked gradient exactly,
+its float32 sums 1e-5 of the summed magnitudes; detectors with the epilogue
+against the same detectors running the separate ops on the card, 1e-5 of
+each output's and gradient's norm in float32 (TF32 off), and in bfloat16 no
+farther from the float32 detector than the separate ops are (1.5 times
+their distance); the rel-pos attention kernels K3a/K3b as ``chip_smoke.check_attn``
 states them; the ROIAlign kernels against their plain versions, float32
 1e-5 (the same arithmetic, summed in another order: the plain backward's
 index_add_ adds with atomics on the card, the kernel tile by tile) and
@@ -20,12 +28,18 @@ detector's exported ``cuda`` program against the eager serving path
 exactly, its ``cpu`` program with the tiny detector's tolerances.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from aldi_tpu_torch.data.strong_aug import strong_aug_draws, strong_augment
 from aldi_tpu_torch.ops import _build, custom_ops
+from aldi_tpu_torch.ops.conv_epilogue import (conv_epilogue_plain,
+                                              conv_epilogue_plain_backward)
+from aldi_tpu_torch.ops.conv_epilogue_kernel import (conv_epilogue,
+                                                     conv_epilogue_bwd)
 from aldi_tpu_torch.ops.anchors import AnchorGenerator
 from aldi_tpu_torch.ops.flash_attn import (attn_delta, flash_attention_relpos,
                                            flash_attn_plain)
@@ -41,9 +55,9 @@ from aldi_tpu_torch.ops.roi_align import (box_levels, roi_align_batched,
 from aldi_tpu_torch.ops.roi_align_kernel import roi_align_bwd, roi_align_fwd
 from chip_smoke import (ALIGN, CONVNEXT_ALDI, FLAGSHIP, LAPJV_CASES,
                         VIT_ALDI, attn_inputs, check_attn, lapjv_case,
-                        tiny_artifact_check, tiny_reference_check,
-                        tiny_train_reference_check, tiny_vit,
-                        tied_lapjv_problems)
+                        seeded_weights, tiny_artifact_check, tiny_config,
+                        tiny_reference_check, tiny_train_reference_check,
+                        tiny_vit, tied_lapjv_problems)
 from torch_port_match_cases import CASES as MATCH_CASES
 from torch_port_match_cases import match_case
 from torch_port_threads import capped_torch_threads  # noqa: F401
@@ -680,3 +694,368 @@ def test_tiny_trainer_on_card_checkpoints_and_resumes(card, tmp_path, accum):
     assert results == {} and resumed.state.step == 3
     assert (tmp_path / "out" / "model_0000003.pth").exists()
     assert resumed.test()[names["val"]]["bbox/AP50"] >= 0
+
+
+# ------------------------------------------------------- conv epilogue
+EPILOGUE_FORMS = ("bias", "bias_relu", "residual_relu", "top_down")
+
+
+def _nhwc(card, gen, shape, dtype, offset=False):
+    """A [N, C, H, W] tensor in channels_last memory; ``offset``: one
+    element into its storage, so not 16-byte aligned."""
+    n, c, h, w = shape
+    t = torch.randn((n, h, w, c), generator=gen, device=card).to(dtype)
+    if offset:
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=card)
+        flat[1:].copy_(t.reshape(-1))
+        t = flat[1:].view(n, h, w, c)
+    return t.permute(0, 3, 1, 2)
+
+
+def _epilogue_args(card, form, dtype, c, seed=0, shape=(2, 6, 10),
+                   offset=False):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n, h, w = shape
+    y = _nhwc(card, gen, (n, c, h, w), dtype, offset)
+    bias = torch.randn(c, generator=gen, device=card)
+    res = (_nhwc(card, gen, (n, c, h, w), dtype, offset)
+           if form == "residual_relu" else None)
+    coarse = (_nhwc(card, gen, (n, c, h // 2, w // 2), dtype, offset)
+              if form == "top_down" else None)
+    return y, bias, res, coarse, form in ("bias_relu", "residual_relu")
+
+
+def _check_epilogue(y, bias, res, coarse, relu):
+    """Launch the forward on y in place and hold it against the plain
+    version; returns nothing, asserts."""
+    dtype = y.dtype
+    up = (lambda t: None if t is None else t.float())
+    once = conv_epilogue_plain(y.float(), bias, up(res), up(coarse),
+                               relu).to(dtype)
+    plain = conv_epilogue_plain(y, bias, res, coarse, relu)
+    mag = y.float().abs() + bias.abs()[:, None, None]
+    if res is not None:
+        mag = mag + res.float().abs()
+    if coarse is not None:
+        mag = mag + torch.nn.functional.interpolate(
+            coarse.float().abs(), scale_factor=2, mode="nearest")
+    before, ptr = conv_epilogue.launches, y.data_ptr()
+    custom_ops.conv_epilogue(y, bias, res, coarse, relu)
+    torch.cuda.synchronize()
+    assert conv_epilogue.launches == before + 1
+    assert y.data_ptr() == ptr
+    assert torch.equal(y, once)
+    if dtype == torch.float32:
+        assert torch.equal(y, plain)
+    else:
+        assert ((y.float() - plain.float()).abs() <= 2 ** -7 * mag).all()
+
+
+@pytest.mark.parametrize("channels", [12, 64, 2056])
+@pytest.mark.parametrize("form", EPILOGUE_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_epilogue_kernel_matches_plain(card, dtype, form, channels):
+    """The forward, in place, in each form: channel counts that are not a
+    multiple of 8 (12), one warp's vectors (64), and more channel groups
+    than a block has threads (2056)."""
+    _check_epilogue(*_epilogue_args(card, form, dtype, channels))
+
+
+@pytest.mark.parametrize("form", EPILOGUE_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_epilogue_kernel_unaligned_operands(card, dtype, form):
+    """Operands one element into their storage take the one-channel path
+    and give the same results."""
+    _check_epilogue(*_epilogue_args(card, form, dtype, 64, seed=1,
+                                    offset=True))
+
+
+EPILOGUE_GRADS = {"relu": (True, False, False),
+                  "relu_bias": (True, True, False),
+                  "bias": (False, True, False),
+                  "top_down": (False, True, True),
+                  "top_down_frozen_bias": (False, False, True)}
+
+
+@pytest.mark.parametrize("channels", [12, 64, 2056])
+@pytest.mark.parametrize("grads", sorted(EPILOGUE_GRADS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_epilogue_bwd_kernel_matches_plain(card, dtype, grads,
+                                                channels):
+    """The backward: the ReLU's mask exactly (ties at 0 included), the
+    float32 bias sums and the 2x2 sums of the coarse map's gradient, and
+    two launches bitwise equal (the bias sums are summed in a fixed
+    order)."""
+    has_out, bias_grad, coarse_grad = EPILOGUE_GRADS[grads]
+    gen = torch.Generator(device=card).manual_seed(7)
+    shape = (2, channels, 12, 20)
+    grad = _nhwc(card, gen, shape, dtype)
+    out = None
+    if has_out:
+        out = torch.relu(_nhwc(card, gen, shape, dtype)).contiguous(
+            memory_format=torch.channels_last)
+    before = conv_epilogue_bwd.launches
+    got = custom_ops.conv_epilogue_bwd(grad, out, bias_grad, coarse_grad)
+    again = custom_ops.conv_epilogue_bwd(grad, out, bias_grad, coarse_grad)
+    want = conv_epilogue_plain_backward(grad, out, bias_grad, coarse_grad)
+    torch.cuda.synchronize()
+    assert conv_epilogue_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    gy, gb, gm = got
+    masked = grad if out is None else want[0]
+    if has_out:
+        assert gy.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(gy, want[0])
+    else:
+        assert gy.numel() == 0
+    if bias_grad:
+        scale = masked.float().abs().sum((0, 2, 3))
+        assert gb.dtype == torch.float32
+        assert ((gb - want[1]).abs() <= 1e-5 * scale + 1e-6).all()
+    else:
+        assert gb.numel() == 0
+    if coarse_grad:
+        n, c, h, w = shape
+        scale = masked.float().abs().reshape(n, c, h // 2, 2, w // 2,
+                                             2).sum((3, 5))
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-6
+        assert gm.shape == (n, c, h // 2, w // 2) and gm.dtype == dtype
+        assert gm.is_contiguous(memory_format=torch.channels_last)
+        assert ((gm.float() - want[2].float()).abs() <= tol * scale).all()
+    else:
+        assert gm.numel() == 0
+
+
+def test_conv_epilogue_kernel_refuses_other_layouts(card):
+    """No fallback: the models' rule asks only the device and the dtype, so
+    an NCHW-contiguous y is taken and raises, as do a float16 y, a residual
+    of another shape or a combination that is none of the four forms."""
+    from aldi_tpu_torch.ops.conv_epilogue import takes
+
+    y = torch.zeros((2, 8, 4, 4), device=card)
+    b = torch.zeros(8, device=card)
+    assert takes(y) and takes(y.bfloat16()) and not takes(y.half())
+    assert not takes(y, y.bfloat16())
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_epilogue(y, b)
+    cl = y.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_epilogue(cl.half(), b)
+    with pytest.raises(ValueError, match="residual"):
+        conv_epilogue(cl, b, residual=cl[:1], relu=True)
+    coarse = torch.zeros((2, 8, 2, 2), device=card).contiguous(
+        memory_format=torch.channels_last)
+    for kw in (dict(residual=cl), dict(coarse=coarse, relu=True),
+               dict(residual=cl, coarse=coarse, relu=True)):
+        with pytest.raises(ValueError, match="takes bias"):
+            conv_epilogue(cl, b, **kw)
+    with pytest.raises(ValueError, match="coarse map"):
+        conv_epilogue_bwd(cl, cl, False, True)
+
+
+def _separate_ops(monkeypatch):
+    """The models' rule turned off: every conv runs with its bias and the
+    separate ops, as before the epilogue."""
+    from aldi_tpu_torch.models import layers, resnet
+
+    for module in (layers, resnet):
+        monkeypatch.setattr(module, "takes", lambda *t: False)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def _trunk_and_rpn(det, images, grad=False):
+    """The detector's levels and RPN outputs for ``images`` on the card
+    (with ``grad``: and the gradients of a loss over them)."""
+    det.module.zero_grad(set_to_none=True)
+    with torch.set_grad_enabled(grad):
+        feats = det.backbone(det.preprocess(images))
+        logits, deltas = det.rpn_head(feats)
+        outs = [*feats, *logits, *deltas]
+        grads = {}
+        if grad:
+            sum(o.float().square().mean() for o in outs).backward()
+            grads = {k: p.grad.clone() for k, p
+                     in det.module.named_parameters() if p.grad is not None}
+    return [o.detach() for o in outs], grads
+
+
+def _fused_against_separate(card, cfg, monkeypatch, dtype, grad=False,
+                            canvas=(128, 256)):
+    """The detector's levels and RPN outputs (and with ``grad`` its
+    gradients) with the epilogue against the separate ops, on the card, TF32
+    off: in float32 within 1e-5 of each norm; in bfloat16 no farther from
+    the float32 detector than the separate ops are (the epilogue rounds
+    once where they round at each op). Returns the epilogue launches of
+    one forward."""
+    from aldi_tpu_torch.models import build_detector
+
+    cfg.TPU.CANVAS = canvas
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    det = build_detector(cfg)
+    weights = seeded_weights(det, seed=0)
+    det.module.load_state_dict(weights)
+    gen = torch.Generator(device=card).manual_seed(5)
+    images = torch.rand((2, *canvas, 3), generator=gen, device=card) * 255
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = conv_epilogue.launches
+        got, got_g = _trunk_and_rpn(det, images, grad)
+        launches = conv_epilogue.launches - before
+        with monkeypatch.context() as m:
+            _separate_ops(m)
+            want, want_g = _trunk_and_rpn(det, images, grad)
+            if dtype != "float32":
+                cfg.TPU.COMPUTE_DTYPE = "float32"
+                det32 = build_detector(cfg)
+                det32.module.load_state_dict(weights)
+                ref, ref_g = _trunk_and_rpn(det32, images, grad)
+        assert conv_epilogue.launches - before == launches
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got_g.keys() == want_g.keys()
+    pairs = list(zip(got, want)) + [(got_g[k], want_g[k]) for k in want_g]
+    if dtype == "float32":
+        errs = [_rel(a, b) for a, b in pairs]
+        assert max(errs) <= 1e-5, errs
+        return launches
+    refs = ref + [ref_g[k] for k in want_g]
+    errs = [(_rel(a, r), _rel(b, r)) for (a, b), r in zip(pairs, refs)]
+    assert all(e <= 1.5 * s + 1e-4 for e, s in errs), errs
+    return launches
+
+
+def test_r50fpn_bf16_epilogue_matches_separate_ops(card, monkeypatch):
+    """The flagship's ResNet-50-FPN and RPN head in bfloat16, forward and
+    gradients: every conv of the trunk, the FPN and the RPN head ends in
+    the epilogue kernel (49 + 8 + 15 launches)."""
+    from aldi_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(FLAGSHIP)
+    launches = _fused_against_separate(card, cfg, monkeypatch, "bfloat16",
+                                       grad=True)
+    assert launches == 72
+
+
+def test_r50fpn_request_launches_and_no_strided_bias_add(card):
+    """One full-width R50-FPN request's trunk and RPN head (2 images at
+    1024 x 2048, bfloat16): 72 epilogue launches (the stem, three a
+    bottleneck, eight FPN convs, three RPN convs on each of five levels),
+    and no add, ReLU or upsampling on an activation left in the profile:
+    the strided ``elementwise_kernel<128, 4>`` runs only on weights, a
+    small share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aldi_tpu_torch.config import get_cfg
+    from aldi_tpu_torch.models import build_detector
+
+    cfg = get_cfg()
+    cfg.merge_from_file(FLAGSHIP)
+    det = build_detector(cfg)
+    images = torch.rand((2, 1024, 2048, 3), device=card) * 255
+    with torch.inference_mode():
+        det.rpn_head(det.backbone(det.preprocess(images)))  # warm up
+        torch.cuda.synchronize()
+        before = conv_epilogue.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            det.rpn_head(det.backbone(det.preprocess(images)))
+            torch.cuda.synchronize()
+    assert conv_epilogue.launches - before == 72
+    pointwise = {"aten::add", "aten::add_", "aten::relu", "aten::relu_",
+                 "aten::clamp_min", "aten::clamp_min_",
+                 "aten::upsample_nearest2d"}
+    on_activations = [
+        (e.name, e.input_shapes) for e in prof.events()
+        if e.name in pointwise and e.input_shapes
+        and len(e.input_shapes[0]) == 4 and e.input_shapes[0][0] == 2
+        and e.input_shapes[0][2] * e.input_shapes[0][3] > 1]
+    assert not on_activations, on_activations[:5]
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    strided = sum(us for name, us in kernels
+                  if re.search(r"elementwise_kernel<128, ?4[,>]", name))
+    total = sum(us for _, us in kernels)
+    print(f"strided elementwise_kernel<128, 4>: {strided:.0f} of "
+          f"{total:.0f} us of the trunk and RPN head (folding the FrozenBN "
+          f"scale into each kernel's weights)")
+    assert strided <= 0.05 * total, (strided, total)
+
+
+def test_convnext_fpn_epilogue_matches_separate_ops(card, monkeypatch):
+    """ConvNeXt-FPN (the tiny ConvNeXt) in bfloat16: its FPN and RPN head
+    take the epilogue (8 + 15 launches), its own convs do not."""
+    launches = _fused_against_separate(
+        card, tiny_config(CONVNEXT_ALDI), monkeypatch, "bfloat16",
+        grad=True)
+    assert launches == 23
+
+
+def test_vitdet_rpn_head_epilogue_matches_separate_ops(card, monkeypatch):
+    """ViTDet-B's head config over the tiny ViT in bfloat16: the RPN head's
+    two convs and two predictors on each of five levels."""
+    with tiny_vit():
+        launches = _fused_against_separate(
+            card, tiny_config(VIT_ALDI), monkeypatch, "bfloat16")
+    assert launches == 20
+
+
+def test_detr_float32_resnet_epilogue_matches_separate_ops(card,
+                                                           monkeypatch):
+    """Deformable DETR's float32 torchvision ResNet-50 (TF32 off), forward
+    and gradients of its four stages: 49 epilogue launches, and no farther
+    from the same net in float64 than the separate ops are (a ReLU mask
+    that flips on a one-ulp difference moves a gradient by more than
+    float32's rounding, in both)."""
+    from aldi_tpu_torch.models.resnet import TorchvisionResNet
+
+    net = TorchvisionResNet(50, freeze_at=1).to(card)
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if name.endswith("running_var") or name.endswith("weight") and \
+                    t.dim() == 1:
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif t.dim() == 4:
+                t.copy_(torch.randn(t.shape, generator=gen)
+                        / t[0].numel() ** 0.5)
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+    x = torch.randn((2, 3, 96, 160), generator=gen).to(card).contiguous(
+        memory_format=torch.channels_last)
+
+    def run(dtype=torch.float32):
+        for m in net.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
+        net.zero_grad(set_to_none=True)
+        outs = list(net(x.to(dtype)).values())
+        sum(o.float().square().mean() for o in outs).backward()
+        return ([o.detach().double() for o in outs],
+                {k: p.grad.double() for k, p in net.named_parameters()
+                 if p.grad is not None})
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = conv_epilogue.launches
+        got, got_g = run()
+        launches = conv_epilogue.launches - before
+        with monkeypatch.context() as m:
+            _separate_ops(m)
+            want, want_g = run()
+        ref, ref_g = run(torch.float64)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert launches == 49
+    assert got_g.keys() == want_g.keys() == ref_g.keys() and got_g
+    pairs = ([(a, b, r) for a, b, r in zip(got, want, ref)]
+             + [(got_g[k], want_g[k], ref_g[k]) for k in ref_g])
+    errs = [(_rel(a, r), _rel(b, r)) for a, b, r in pairs]
+    assert all(e <= 1.5 * s + 1e-6 for e, s in errs), errs
